@@ -10,8 +10,8 @@ seeded random encoder with ``--random_init``), reads wavs through the native
 frontend, and runs the bucketed batched pipeline on ``--device`` (default
 ``cuda``, card index ``--gpu``). Output layout matches the reference:
 ``{save_dir}/{model_name}-{UTT|FRA}/{clip}.npy``. The wav2vec2 / HuBERT /
-data2vec / WavLM family is ported; the other encoders exit with the ROADMAP
-item that ports them.
+data2vec / WavLM family and Whisper are ported; the other encoders exit with
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ import numpy as np
 
 # model-name fragment -> the ROADMAP item that ports its extractor
 _NOT_PORTED = (
-    ("whisper", "A8, the Whisper feature and ASR slice"),
     ("vggish", "A9, the remaining encoder zoo"),
     ("emotion2vec", "A9, the remaining encoder zoo"),
     ("imagebind", "A9, the remaining encoder zoo"),
@@ -41,6 +40,26 @@ def _not_ported(lname: str) -> str | None:
         if frag in lname:
             return item
     return None
+
+
+def load_whisper(model_name: str, pretrain_dir: str | None, random_init: bool):
+    """Returns (WhisperConfig, state dict). random_init builds the JAX CLI's
+    tiny seeded Whisper (d_model 64, 2 + 2 layers) for smoke runs."""
+    import torch
+
+    from ..encoders.whisper import WhisperConfig, init_params, load_hf_state_dict
+
+    if random_init:
+        cfg = WhisperConfig(d_model=64, encoder_layers=2, decoder_layers=2,
+                            num_heads=4, ffn_dim=128, vocab_size=128,
+                            decoder_start_token_id=120, eos_token_id=121)
+        return cfg, init_params(cfg, torch.Generator().manual_seed(0))
+    from transformers import WhisperModel as HFWhisper
+
+    path = os.path.join(pretrain_dir, model_name) if pretrain_dir else model_name
+    model = HFWhisper.from_pretrained(path)
+    return (WhisperConfig.from_hf(model.config),
+            load_hf_state_dict(model.state_dict()))
 
 
 def load_encoder(model_name: str, pretrain_dir: str | None, random_init: bool,
@@ -75,7 +94,7 @@ def load_encoder(model_name: str, pretrain_dir: str | None, random_init: bool,
 def main(argv=None):
     from ..core.config import resolve_dataset_args
     from ..core.profiling import trace
-    from ..features.audio import AudioExtractor
+    from ..features.audio import AudioExtractor, WhisperAudioExtractor
     from mertools_tpu.io import wav as wav_io
 
     p = argparse.ArgumentParser("extract_audio")
@@ -123,13 +142,23 @@ def main(argv=None):
     out_dir = os.path.join(args.save_dir, f"{args.model_name}-{level}")
     os.makedirs(out_dir, exist_ok=True)
 
-    cfg, params = load_encoder(args.model_name, args.pretrain_dir,
-                               args.random_init, args.encoder_size)
     device = f"cuda:{args.gpu}" if args.device == "cuda" else "cpu"
-    ex = AudioExtractor(cfg, params,
-                        sample_budget=args.batch_budget_sec * 16000,
-                        compute_dtype=args.compute_dtype,
-                        transfer_dtype=args.transfer_dtype, device=device)
+    if "whisper" in args.model_name.lower():
+        if args.compute_dtype is not None:
+            print(f"--compute_dtype {args.compute_dtype} is ignored: the "
+                  f"Whisper extractor runs in fp32, as the JAX package's does")
+        cfg, params = load_whisper(args.model_name, args.pretrain_dir,
+                                   args.random_init)
+        ex = WhisperAudioExtractor(cfg, params,
+                                   transfer_dtype=args.transfer_dtype,
+                                   device=device)
+    else:
+        cfg, params = load_encoder(args.model_name, args.pretrain_dir,
+                                   args.random_init, args.encoder_size)
+        ex = AudioExtractor(cfg, params,
+                            sample_budget=args.batch_budget_sec * 16000,
+                            compute_dtype=args.compute_dtype,
+                            transfer_dtype=args.transfer_dtype, device=device)
 
     files = sorted(glob.glob(os.path.join(args.audio_dir, "*.wav")))
     print(f"extracting {len(files)} wavs -> {out_dir}")

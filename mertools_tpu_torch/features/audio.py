@@ -17,6 +17,10 @@ per-clip forwards. Host batches go to the card through pinned memory with
 non-blocking copies, every batch is dispatched before any result is read
 (the card works while the host builds the next batch), and UTT pooling runs
 on the device so only (B, D) sums cross back.
+
+:class:`WhisperAudioExtractor` is the Whisper branch
+(``mertools_tpu/features/audio.py:329-393``): 30 s clips, log-mel, encoder
+and a 2-token decoder stub.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.device import resolve_device, to_pcm16, upload
 from ..encoders.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 
 MAX_SEGMENT = 16000 * 10  # 10 s at 16 kHz (reference maxlen)
@@ -108,16 +113,8 @@ class AudioExtractor:
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if self.transfer_dtype not in ("f32", "int16"):
             raise ValueError(f"transfer_dtype {self.transfer_dtype!r}")
-        self._device = torch.device(self.device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device={self.device!r} but this host has no "
-                               f"CUDA device")
         fast = self.compute_dtype == "bf16"
-        if not fast and self._device.type == "cuda":
-            # parity mode: full-fp32 GEMMs and convolutions (cuDNN would
-            # otherwise run the conv frontend in TF32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self._device = resolve_device(self.device, fp32=not fast)
         self._dtype = torch.bfloat16 if fast else torch.float32
         if self.flash is True and self.cfg.attn_type == "standard":
             self.cfg = dataclasses.replace(self.cfg, use_flash_attention=True)
@@ -148,12 +145,6 @@ class AudioExtractor:
         t_idx = torch.arange(x.shape[1], device=x.device)
         return torch.where(t_idx[None, :] < raw_lens[:, None], x, 0.0)
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(arr)
-        if self._device.type == "cuda":
-            return t.pin_memory().to(self._device, non_blocking=True)
-        return t.to(self._device)
-
     def _bucket_len(self, n: int) -> int:
         for b in self.buckets:
             if n <= b:
@@ -171,9 +162,7 @@ class AudioExtractor:
         seg_counts: dict[str, int] = {}
         for name, wav in wavs.items():
             if i16:
-                raw = (wav if wav.dtype == np.int16 else
-                       np.clip(np.round(np.asarray(wav, np.float32) * 32768.0),
-                               -32768, 32767).astype(np.int16))
+                raw = to_pcm16(wav)
                 f = raw.astype(np.float32) / 32768.0
                 if self.do_normalize:
                     inv = 1.0 / np.sqrt(f.var() + 1e-7)
@@ -220,14 +209,15 @@ class AudioExtractor:
                     lens[r] = sl
                     raw_lens[r] = rl
                     affine[r] = (a, b)
-                wav = self._dequant(self._upload(batch), self._upload(affine),
-                                    self._upload(raw_lens))
+                dev = self._device
+                wav = self._dequant(upload(batch, dev), upload(affine, dev),
+                                    upload(raw_lens, dev))
             else:
                 for r, (_, sl, _, _, seg) in enumerate(group):
                     batch[r, : len(seg)] = seg
                     lens[r] = sl
-                wav = self._upload(batch)
-            dev_lens = self._upload(lens)
+                wav = upload(batch, self._device)
+            dev_lens = upload(lens, self._device)
             feat = self._features(wav, dev_lens)
             pending.append((group, self._pooled(feat, dev_lens) if utt
                             else feat, lens))
@@ -277,3 +267,66 @@ def reference_single_clip(cfg: Wav2Vec2Config, params: dict, wav: np.ndarray,
     hs = enc(torch.from_numpy(np.ascontiguousarray(batch)))
     feat = sum(hs[i] for i in layer_ids)  # (B, T, D)
     return feat.reshape(-1, feat.shape[-1]).numpy()
+
+
+class WhisperAudioExtractor:
+    """Whisper feature path (``extract_audio_huggingface.py:83-91``): 30 s
+    padded log-mel -> full encoder + a 2-token decoder stub
+    (decoder_start_token repeated) -> decoder last_hidden (2, D) per clip;
+    UTT = mean over the 2 positions. Fixed batches of ``batch_size`` clips
+    (zero filler rows); the log-mel runs kernel B2 on a CUDA device.
+
+    ``params`` is a state dict in HF ``WhisperModel`` key names. fp32 only,
+    with TF32 off for matmuls and cuDNN (the JAX class has no bf16 mode).
+    ``transfer_dtype="int16"`` ships PCM16 over the host link (half the
+    bytes); Whisper has no input normalisation, so int16 / 32768 on the
+    device is exact for PCM16 sources."""
+
+    def __init__(self, cfg, params: dict, batch_size: int = 8,
+                 transfer_dtype: str = "f32", device="cuda"):
+        from ..encoders.whisper import build_model
+        from ..ops.mel import CHUNK_SAMPLES
+        from ..ops.mel_fused import select_log_mel
+
+        if transfer_dtype not in ("f32", "int16"):
+            raise ValueError(f"transfer_dtype {transfer_dtype!r}")
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.chunk = CHUNK_SAMPLES
+        self.transfer_dtype = transfer_dtype
+        self._device = resolve_device(device, fp32=True)
+        self.model = build_model(cfg, params, self._device)
+        # the device gate; replace it to run another frontend on the device
+        self.log_mel = select_log_mel(self._device)
+
+    def _forward(self, wav: torch.Tensor) -> torch.Tensor:
+        if wav.dtype == torch.int16:
+            wav = wav.float() / 32768.0
+        ids = torch.full((wav.shape[0], 2), self.cfg.decoder_start_token_id,
+                         dtype=torch.long, device=wav.device)
+        return self.model(self.log_mel(wav), ids)          # (B, 2, D)
+
+    @torch.inference_mode()
+    def extract(self, wavs: dict[str, np.ndarray], level: str = "FRA"
+                ) -> dict[str, np.ndarray]:
+        """wavs: clip name -> 16 kHz waveform. Returns name -> (2, D) FRA or
+        (D,) UTT features."""
+        names = list(wavs)
+        B = self.batch_size
+        i16 = self.transfer_dtype == "int16"
+        utt = level.upper().startswith("UTT")
+        pending = []  # dispatch every batch, then collect
+        for i in range(0, len(names), B):
+            group = names[i: i + B]
+            batch = np.zeros((B, self.chunk), np.int16 if i16 else np.float32)
+            for r, n in enumerate(group):
+                w = to_pcm16(wavs[n]) if i16 else wavs[n]
+                batch[r, : min(len(w), self.chunk)] = w[: self.chunk]
+            hs = self._forward(upload(batch, self._device))
+            pending.append((group, hs.mean(1) if utt else hs))
+        out = {}
+        for group, res in pending:
+            res = res.cpu().numpy()
+            for r, n in enumerate(group):
+                out[n] = res[r]
+        return out

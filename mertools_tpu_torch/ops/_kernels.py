@@ -1,11 +1,12 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, loaded with ``ctypes``.
-The build happens at first use, into ``build/kernels/`` at the root of the
-checkout; the file name carries a hash of the sources and flags, so a fresh
-checkout builds once and later processes reuse the library. Nothing is
-compiled or loaded when this module is imported.
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and linked into ONE shared library with a plain
+C interface, loaded with ``ctypes``. The build happens at first use, into
+``build/kernels/`` at the root of the checkout; the file name carries a hash
+of the sources and flags, so a fresh checkout builds once and later
+processes reuse the library. Nothing is compiled or loaded when this module
+is imported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _sources() -> list[Path]:
@@ -39,8 +40,21 @@ def _nvcc() -> str:
                        "are built from mertools_tpu_torch/csrc at first use")
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; raise naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{log}")
+    return "".join(logs)
+
+
 def build() -> tuple[Path, float, str]:
-    """Compile the sources if no library with their hash exists.
+    """Compile the sources if no library with their hash exists: one nvcc
+    per ``.cu`` file, all started together, then one link.
 
     Returns (library path, build seconds, compiler output); the seconds are
     0.0 and the output empty when an existing library was reused."""
@@ -52,25 +66,41 @@ def build() -> tuple[Path, float, str]:
     if out.exists():
         return out, 0.0, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = {s: BUILD_DIR / f"{s.stem}.{tag}.o"
+            for s in _sources() if s.suffix == ".cu"}
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    log = _run([[_nvcc(), *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                for s, o in objs.items()])
+    log += _run([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                  *(str(o) for o in objs.values())]])
+    for o in objs.values():
+        o.unlink()
     os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return out, time.perf_counter() - t0, log
+
+
+# ctypes argument types of every exported C entry point; pointers and the
+# stream are c_void_p (a plain int would be cut to 32 bits), sizes c_int
+SIGNATURES = {
+    "mt_flash_attention_fwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 18
+                               + [ctypes.c_void_p]),
+    "mt_mel_power_fwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p]),
+}
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call, with every entry
+    point of :data:`SIGNATURES` declared; a missing one raises by name."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    fn = lib.mt_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 18
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for name, argtypes in SIGNATURES.items():
+        if not hasattr(lib, name):
+            raise RuntimeError(f"{path.name} exports no {name}")
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

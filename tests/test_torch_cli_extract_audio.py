@@ -69,7 +69,6 @@ def test_extract_audio_cli_end_to_end(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model_name", "whisper-large-v3"], "A8"),
     (["--model_name", "vggish"], "A9"),
     (["--model_name", "wav2vec-large"], "wav2vec-1.0"),
     (["--model_name", "emotion2vec_base"], "A9"),
@@ -83,6 +82,42 @@ def test_unported_branches_exit_naming_roadmap(tmp_path, argv, match):
                      "--random_init", "--device", "cpu"])
 
 
+def test_extract_audio_cli_whisper(tmp_path, capsys):
+    """The Whisper branch: the JAX CLI's tiny seeded config, (64,) UTT files
+    that agree with a library call on the same weights, the compute_dtype
+    notice, and the idempotent skip on a re-run."""
+    from mertools_tpu_torch.cli.extract_audio import load_whisper
+    from mertools_tpu_torch.features.audio import WhisperAudioExtractor
+
+    wav_dir = tmp_path / "audio"
+    wav_dir.mkdir()
+    for i, n in enumerate((16000, 24000)):
+        _write_wav(wav_dir / f"clip{i}.wav", n, i)
+    argv = ["--model_name", "whisper-large-v2", "--audio_dir", str(wav_dir),
+            "--save_dir", str(tmp_path / "features"), "--random_init",
+            "--device", "cpu", "--transfer_dtype", "int16"]
+    main(argv + ["--compute_dtype", "bf16"])
+    assert "ignored" in capsys.readouterr().out
+    out_dir = tmp_path / "features" / "whisper-large-v2-UTT"
+    files = sorted(os.listdir(out_dir))
+    assert files == ["clip0.npy", "clip1.npy"]
+    feats = {f[:-4]: np.load(out_dir / f) for f in files}
+
+    from mertools_tpu.io import wav as wav_io
+    cfg, params = load_whisper("whisper-large-v2", None, True)
+    ref = WhisperAudioExtractor(cfg, params, device="cpu").extract(
+        {f[:-4]: wav_io.read_wav_16k(str(wav_dir / f"{f[:-4]}.wav"))
+         for f in files}, "UTT")
+    for n, f in feats.items():
+        assert f.shape == (64,) and np.isfinite(f).all()
+        assert np.abs(f - ref[n]).max() <= 1e-5, n
+
+    mtimes = {f: os.path.getmtime(out_dir / f) for f in files}
+    main(argv)
+    for f in files:
+        assert os.path.getmtime(out_dir / f) == mtimes[f]
+
+
 def test_dataset_missing_from_registry_exits(tmp_path, monkeypatch):
     monkeypatch.delenv("MERTOOLS_TPU_CONFIG", raising=False)
     with pytest.raises(SystemExit, match="not in the path registry"):
@@ -94,7 +129,10 @@ def test_port_never_imports_jax():
     """Run in a fresh interpreter: the test process itself imports JAX
     (tests/conftest.py)."""
     code = ("import sys, mertools_tpu_torch, mertools_tpu_torch.cli.extract_audio, "
-            "mertools_tpu_torch.features.audio, mertools_tpu_torch.core.profiling\n"
+            "mertools_tpu_torch.features.audio, mertools_tpu_torch.core.profiling, "
+            "mertools_tpu_torch.asr.pipeline, mertools_tpu_torch.asr.decode, "
+            "mertools_tpu_torch.cli.main_asr, mertools_tpu_torch.encoders.whisper, "
+            "mertools_tpu_torch.ops.mel_fused\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
             "assert not bad, bad\n")

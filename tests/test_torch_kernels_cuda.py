@@ -1,5 +1,6 @@
-"""Kernel B1 (csrc/flash_attention_fwd.cu) against its plain version, on the
-card. Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips.
+"""Kernels B1 (csrc/flash_attention_fwd.cu) and B2 (csrc/mel_power_fwd.cu)
+against their plain versions, on the card. Needs an NVIDIA Hopper GPU and
+nvcc; elsewhere every test skips.
 
 This file imports neither JAX nor the JAX package, so on a machine without
 JAX it runs without the suite's conftest:
@@ -13,6 +14,8 @@ import torch
 
 from mertools_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_ref)
+from mertools_tpu_torch.ops.mel import log_mel_from_power
+from mertools_tpu_torch.ops.mel_fused import mel_power, mel_power_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +89,47 @@ def test_cuda_tensors_never_fall_back(cuda):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, k, v, torch.tensor([16], dtype=torch.int32,
                                               device=cuda))
+
+
+# B2: max |kernel - ref| / max |ref| per clip. Both sides are fp32; the kernel
+# sums the dense DFT where the reference runs cuFFT, so they differ by
+# rounding only (~1e-6 of the clip's peak power at these inputs)
+MEL_TOL = 1e-5
+LOG_MEL_TOL = 1e-4  # abs, in the (log10 + 4) / 4 domain
+
+
+def _mel_inputs(cuda):
+    n = 480000
+    t = np.arange(n) / 16000.0
+    rng = np.random.default_rng(3)
+    wav = np.zeros((5, n), np.float32)
+    wav[0, :64000] = 0.4 * np.sin(2 * np.pi * 440 * t[:64000])   # sine
+    wav[1] = rng.normal(size=n) * 0.1                             # noise
+    # wav[2] stays zero: a filler row
+    wav[3] = np.sign(np.sin(2 * np.pi * 200 * t + 0.1))           # +-1 square
+    wav[4] = 0.3 + 0.05 * rng.normal(size=n)                      # DC offset
+    return torch.from_numpy(wav).to(cuda)
+
+
+def test_mel_kernel_matches_plain(cuda):
+    wav = _mel_inputs(cuda)
+    before = mel_power.launches
+    out = mel_power(wav)
+    torch.cuda.synchronize()
+    assert mel_power.launches == before + 1
+    ref = mel_power_ref(wav)
+    assert out.shape == ref.shape == (5, 3000, 80)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[2], torch.zeros_like(out[2]))  # exact zeros
+    for b in (0, 1, 3, 4):
+        rel = ((out[b] - ref[b]).abs().max() / ref[b].abs().max()).item()
+        assert rel <= MEL_TOL, (b, rel)
+    d_log = (log_mel_from_power(out) - log_mel_from_power(ref)).abs().max()
+    assert d_log.item() <= LOG_MEL_TOL, d_log.item()
+
+
+def test_mel_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="480000"):
+        mel_power(torch.zeros(1, 16000, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        mel_power(torch.zeros(1, 480000, device=cuda, dtype=torch.float64))
