@@ -5,9 +5,10 @@
 
 Drives the port's paths through the entry points a user calls, at full
 published width with seeded random weights — HuBERT-large audio feature
-extraction (hidden 1024, 24 layers, 16 heads), then Whisper-large-v2
-features and ASR (d_model 1280, 32 + 32 layers, 20 heads, vocab 51865) —
-and checks them:
+extraction (hidden 1024, 24 layers, 16 heads), Whisper-large-v2 features and
+ASR (d_model 1280, 32 + 32 layers, 20 heads, vocab 51865), and AffectGPT
+LoRA training at TinyLlama-1.1B width (hidden 2048, 22 layers, 32 heads, 4
+KV heads, vocab 32000) — and checks them:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
@@ -28,7 +29,18 @@ and checks them:
    decode rates, a profile of one decode, and the cached decode steps
    against the full decoder;
 8. CLIs: ``extract_audio`` on Whisper (tiny random config) and
-   ``main_asr merge`` / ``punctuate``.
+   ``main_asr merge`` / ``punctuate``;
+9. B3: the causal flash attention's four kernels (forward, di pre-pass,
+   dK/dV, dQ) against their plain version and autograd at TinyLlama's
+   attention (B 8, S 512, ragged padding; fp32 and bf16; hd 64 and 128),
+   with CUDA-event times beside SDPA's;
+10. training: bench.py's AffectGPT step (B 8 x S 512, bf16, chunked loss)
+   through ``Runner.train_step`` on kernel B3, a warm-up step and 10 timed
+   steps (tokens/s, memory, launch counts, the loss trajectory), a profile
+   of one step, the executed FLOP, the same steps with eager attention, and
+   fp32 on the card against the CPU at full width with 2 LLM layers;
+11. CLI: ``train_mllm`` on synthetic features (best-setup stream mode),
+   2 epochs, then resumed for a third.
 
 Before each path runs, its kernels' launch counts are set to 0; they are
 read right after it. It prints one JSON line about the kernels and, last, one JSON line
@@ -57,6 +69,28 @@ KERNEL_TOL = {"fp32": 2e-5, "bf16": 1e-2}  # max|kernel - ref| / max|ref|
 # B2: both sides fp32, dense DFT vs cuFFT, so rounding only
 MEL_TOL = 1e-5      # max |kernel - ref| / max |ref| per clip
 LOG_MEL_TOL = 1e-4  # abs, in the (log10 + 4) / 4 domain
+# B3 against its plain version, max |kernel - ref| / max |ref|: fp32 differs
+# in summation order only; bf16 rounds P and dS to bf16 inside the products
+# and the outputs to 8 mantissa bits (forward, dQ/dK/dV)
+B3_TOL = {"fp32": (1e-5, 1e-4), "bf16": (1e-2, 2e-2)}
+LSE_TOL = 1e-4      # abs: the row logsumexp is fp32 on both sides
+# each B3 kernel against its own plain version on the same bf16 inputs, max
+# |kernel - ref| / max |ref|: di is an fp32 row sum on both sides
+B3_KERNEL_TOL = {"fwd": 1e-2, "prep": 1e-5, "dkv": 2e-2, "dq": 2e-2}
+LLM_FLASH_TOL = 4.7e-3  # flash vs eager LLM loss, relative (PARITY.md:179-181)
+# flash vs eager LoRA gradients in bf16, max |flash - eager| / max |eager|;
+# a wrong attention backward moves them by O(1)
+LORA_GRAD_TOL = 5e-2
+# H100 SXM peaks (NVIDIA data sheet, dense): the least time a kernel could
+# take is the larger of its bytes over HBM3 and its operations over the peak
+HBM_BPS = 3.35e12
+PEAK = {"bf16": 989e12, "fp32": 67e12}
+
+
+def bound(n_bytes: float, flops: float, kind: str) -> tuple[float, str]:
+    """(least ms for the work, "bytes" or "operations")."""
+    t_mem, t_ops = n_bytes / HBM_BPS * 1e3, flops / PEAK[kind] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -112,9 +146,16 @@ def phase_kernel(torch, fa, card):
                               + bias.to(dtype), dim=-1)
             return torch.einsum("bnqk,bknd->bqnd", w, v)
 
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        key_ok = (bias == 0)    # (B, 1, 1, T)
+
+        def library():  # the yardstick, never called by the port
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=key_ok, scale=1.0)
+
         runs = {"kernel": lambda: fa.flash_attention(q, k, v, kv_len),
                 "plain": lambda: fa.flash_attention_ref(q, k, v, kv_len),
-                "inline": inline}
+                "inline": inline, "library": library}
         for f in runs.values():
             f()
         times = {n: [] for n in runs}
@@ -122,13 +163,21 @@ def phase_kernel(torch, fa, card):
             for n, f in runs.items():
                 times[n] += cuda_ms(torch, f, reps=1)
         med = {n: float(np.median(t)) for n, t in times.items()}
+        # q, k, v read and out written once; both products over the keys
+        # each row attends to (rows with kv_len 0 do none)
+        es = 4 if name == "fp32" else 2
+        flops = 4.0 * hd * nh * T * sum(min(n, T) for n in lens)
+        b_ms, b_by = bound(4.0 * B * T * nh * hd * es + 4 * B, flops, name)
         res[name] = dict(max_abs_err=err, rel_err=rel, ms=med["kernel"],
-                         plain_ms=med["plain"], inline_ms=med["inline"])
+                         plain_ms=med["plain"], inline_ms=med["inline"],
+                         library_ms=med["library"], bound_ms=b_ms, bound_by=b_by)
         print(f"[2 kernel] {name} B={B} T={T} nh={nh} hd={hd} kv_len={lens}: "
               f"max_abs_err={err:.3e} rel={rel:.3e} (limit {KERNEL_TOL[name]}) "
               f"kernel {med['kernel']:.4f} ms, plain {med['plain']:.4f} ms, "
-              f"encoder inline attention {med['inline']:.4f} ms "
-              f"(median of 20) [{card}]", flush=True)
+              f"encoder inline attention {med['inline']:.4f} ms, SDPA with the "
+              f"key mask {med['library']:.4f} ms (median of 20); bound "
+              f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.2f} GFLOP) [{card}]",
+              flush=True)
     return res
 
 
@@ -312,6 +361,15 @@ def phase_mel(torch, mel, mf, card):
         for n, f in runs.items():
             times[n] += cuda_ms(torch, f, reps=1)
     med = {n: float(np.median(t)) for n, t in times.items()}
+    # the operations the function needs per frame (not the kernel's dense
+    # DFT): the window, a 400-point real FFT (2.5 N log2 N), the power of
+    # 201 bins and the filterbank's nonzero entries; fp32
+    frames = 480000 // 160
+    nnz = int(np.count_nonzero(mel.filter_bank()))
+    flops = 8 * frames * (400 + 2.5 * 400 * math.log2(400) + 3 * 201 + 2.0 * nnz)
+    b_ms, b_by = bound(4.0 * 8 * (480000 + frames * 80), flops, "fp32")
+    print(f"[5 mel] bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP "
+          f"with an FFT and {nnz} filterbank nonzeros) [{card}]", flush=True)
     print(f"[5 mel] B2 B=8x480000 (sine, sine+noise, noise, short noise, zero, "
           f"square, DC, DC+noise): max_abs_err={err:.3e}, worst clip "
           f"{rel:.3e} of max|ref| (limit {MEL_TOL}), log-mel max abs err "
@@ -320,7 +378,7 @@ def phase_mel(torch, mel, mf, card):
           f"{med['log_mel_fused']:.4f} ms, log_mel_spectrogram "
           f"{med['log_mel']:.4f} ms (median of 20) [{card}]", flush=True)
     return dict(max_abs_err=err, rel_err=rel, log_err=d_log, ms=med["kernel"],
-                plain_ms=med["plain"])
+                plain_ms=med["plain"], bound_ms=b_ms, bound_by=b_by)
 
 
 def whisper_clips():
@@ -578,6 +636,445 @@ def phase_cli_whisper(torch, mf, ta, card):
     check(dd <= 1e-4, f"CLI vs library {dd}")
 
 
+# ------------------------------------------------------------ AffectGPT (B3)
+B3_LENS = (512, 480, 448, 384, 320, 256, 160, 97)   # right padding, S = 512
+
+
+def causal_pairs(lens, S: int) -> int:
+    """(query, key) pairs the causal segment mask lets through in one head:
+    the valid rows see the valid keys up to themselves, the pad rows the pad
+    keys up to themselves."""
+    return sum(n * (n + 1) // 2 + (S - n) * (S - n + 1) // 2 for n in lens)
+
+
+def b3_inputs(torch, dtype, nh, nkv, hd, lens=B3_LENS, S=512, seed=0):
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(B, S, n, hd))
+                                      .astype(np.float32)).to("cuda", dtype)
+                     for n in (nh, nkv, nkv, nh))
+    seg = torch.tensor([[1 if t < n else 0 for t in range(S)] for n in lens],
+                       dtype=torch.int32, device="cuda")
+    return q, k, v, seg, dout
+
+
+def rel_err(torch, a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def b3_check(torch, fc, kind, nh, nkv, hd):
+    """Kernel forward (O, lse) and backward (dQ, dK, dV through the autograd
+    Function) against the plain version and autograd through it, on every
+    row, pad rows included."""
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    q, k, v, seg, dout = b3_inputs(torch, dtype, nh, nkv, hd)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fc.flash_attention_causal(*qkv, seg)
+    out.backward(dout)
+    _, lse = fc.flash_attention_causal_fwd(q, k, v, seg)
+    torch.cuda.synchronize()
+    ref_in = [t.float().requires_grad_() for t in (q, k, v)]
+    ref, ref_lse = fc.causal_attention_fwd_ref(*ref_in, seg)
+    ref.backward(dout.float())
+    errs = {"out": rel_err(torch, out, ref),
+            "lse": (lse - ref_lse).abs().max().item()}
+    errs.update({f"d{n}": rel_err(torch, a.grad, b.grad)
+                 for n, a, b in zip("qkv", qkv, ref_in)})
+    fwd_tol, grad_tol = B3_TOL[kind]
+    check(bool(torch.isfinite(out).all()), f"B3 {kind} hd {hd}: non-finite output")
+    check(errs["out"] <= fwd_tol, f"B3 {kind} hd {hd}: out {errs['out']}")
+    check(errs["lse"] <= LSE_TOL, f"B3 {kind} hd {hd}: lse {errs['lse']}")
+    for n in ("dq", "dk", "dv"):
+        check(errs[n] <= grad_tol, f"B3 {kind} hd {hd}: {n} {errs[n]}")
+    return errs
+
+
+def phase_b3(torch, fc, card):
+    """Kernel B3 (four kernels) against its plain version at TinyLlama's
+    attention (B 8, S 512, nh 32, nkv 4, hd 64, ragged right padding), fp32
+    and bf16, plus hd 128 at nh 28 (Qwen2.5-7B); CUDA-event times of each
+    kernel, of the kernels' fwd+bwd, of the plain version and of SDPA."""
+    for kind in ("fp32", "bf16"):
+        for nh, nkv, hd in ((32, 4, 64), (28, 4, 128)):
+            e = b3_check(torch, fc, kind, nh, nkv, hd)
+            print(f"[9 b3] {kind} B=8 S=512 nh={nh} nkv={nkv} hd={hd} lens="
+                  f"{list(B3_LENS)}: out {e['out']:.3e}, dq {e['dq']:.3e}, dk "
+                  f"{e['dk']:.3e}, dv {e['dv']:.3e} of max|ref| (limits "
+                  f"{B3_TOL[kind]}), lse {e['lse']:.3e} abs (limit {LSE_TOL}) "
+                  f"[{card}]", flush=True)
+
+    # each kernel against its own plain version on the same inputs, bf16,
+    # at the training shape
+    nh, nkv, hd, S = 32, 4, 64, 512
+    q, k, v, seg, dout = b3_inputs(torch, torch.bfloat16, nh, nkv, hd)
+    B = q.shape[0]
+    out, lse = fc.flash_attention_causal_fwd(q, k, v, seg)
+    di = fc.flash_attention_causal_bwd_prep(out, dout)
+    dk, dv = fc.flash_attention_causal_bwd_dkv(q, k, v, seg, dout, lse, di)
+    dq = fc.flash_attention_causal_bwd_dq(q, k, v, seg, dout, lse, di)
+    torch.cuda.synchronize()
+    r_out, _ = fc.causal_attention_fwd_ref(q, k, v, seg)
+    r_di = fc.bwd_prep_ref(out, dout)
+    r_dk, r_dv = fc.bwd_dkv_ref(q, k, v, seg, dout, lse, di)
+    r_dq = fc.bwd_dq_ref(q, k, v, seg, dout, lse, di)
+    vs_plain = {"fwd": [(out, r_out)], "prep": [(di, r_di)],
+                "dkv": [(dk, r_dk), (dv, r_dv)], "dq": [(dq, r_dq)]}
+    err = {n: max((a.float() - b.float()).abs().max().item() for a, b in ab)
+           for n, ab in vs_plain.items()}
+    rel = {n: max(rel_err(torch, a, b) for a, b in ab)
+           for n, ab in vs_plain.items()}
+    for n, r in rel.items():
+        check(r <= B3_KERNEL_TOL[n], f"B3 {n} vs its plain version: {r} of "
+              f"max|ref| > {B3_KERNEL_TOL[n]}")
+
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (t.transpose(1, 2).repeat_interleave(nh // nkv, 1).contiguous()
+              for t in (k, v))
+    qhg, khg, vhg = (t.clone().requires_grad_() for t in (qh, kh, vh))
+    mask = ((seg[:, :, None] == seg[:, None, :])
+            & torch.ones(S, S, dtype=torch.bool, device="cuda").tril())[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    doh = dout.transpose(1, 2).contiguous()
+
+    def fwd_bwd(f, *ts):
+        for t in ts:
+            t.grad = None
+        f().backward(doh if ts[0] is qhg else dout)
+
+    runs = {
+        "fwd": lambda: fc.flash_attention_causal_fwd(q, k, v, seg),
+        "prep": lambda: fc.flash_attention_causal_bwd_prep(out, dout),
+        "dkv": lambda: fc.flash_attention_causal_bwd_dkv(q, k, v, seg, dout, lse, di),
+        "dq": lambda: fc.flash_attention_causal_bwd_dq(q, k, v, seg, dout, lse, di),
+        "fwd_bwd": lambda: fwd_bwd(
+            lambda: fc.flash_attention_causal(qg, kg, vg, seg), qg, kg, vg),
+        "plain_fwd": lambda: fc.causal_attention_fwd_ref(q, k, v, seg),
+        "plain_prep": lambda: fc.bwd_prep_ref(out, dout),
+        "plain_dkv": lambda: fc.bwd_dkv_ref(q, k, v, seg, dout, lse, di),
+        "plain_dq": lambda: fc.bwd_dq_ref(q, k, v, seg, dout, lse, di),
+        "plain_fwd_bwd": lambda: fwd_bwd(
+            lambda: fc.causal_attention_ref(qg, kg, vg, seg), qg, kg, vg),
+        "sdpa_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+        "sdpa_fwd_bwd": lambda: fwd_bwd(
+            lambda: sdpa(qhg, khg, vhg, attn_mask=mask), qhg, khg, vhg),
+    }
+    for f in runs.values():
+        f()
+    times = {n: [] for n in runs}
+    for _ in range(10):  # in turns, so drift hits all alike
+        for n, f in runs.items():
+            times[n] += cuda_ms(torch, f, reps=1)
+    med = {n: float(np.median(t)) for n, t in times.items()}
+
+    # bytes: every input read once, every output written once; operations:
+    # the products over the pairs this data's mask lets through
+    pairs = causal_pairs(B3_LENS, S) * nh
+    big, small = B * S * nh * hd * 2, B * S * nkv * hd * 2   # bf16 tensors
+    rows, segb = B * nh * S * 4, B * S * 4                   # fp32 rows, seg
+    work = {"fwd": (2 * big + 2 * small + segb + rows, 4.0 * hd * pairs, "bf16"),
+            "prep": (2 * big + rows, 2.0 * B * S * nh * hd, "fp32"),
+            "dkv": (2 * big + 4 * small + segb + 2 * rows, 8.0 * hd * pairs, "bf16"),
+            "dq": (3 * big + 2 * small + segb + 2 * rows, 6.0 * hd * pairs, "bf16")}
+    res = {}
+    for n, (nb, fl, kind) in work.items():
+        b_ms, b_by = bound(nb, fl, kind)
+        res[n] = dict(max_abs_err=err[n], ms=med[n], plain_ms=med[f"plain_{n}"],
+                      library_ms=med["sdpa_fwd"] if n == "fwd" else None,
+                      bound_ms=b_ms, bound_by=b_by)
+        print(f"[9 b3] {n}: kernel {med[n]:.4f} ms, plain {med[f'plain_{n}']:.4f} "
+              f"ms, bound {b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, "
+              f"{fl / 1e9:.2f} GFLOP), max_abs_err vs plain {err[n]:.3e} = "
+              f"{rel[n]:.3e} of max|ref| (limit {B3_KERNEL_TOL[n]}) [{card}]",
+              flush=True)
+    print(f"[9 b3] bf16 B=8 S=512 nh=32 nkv=4 hd=64 (median of 10): kernels "
+          f"fwd {med['fwd']:.4f} ms, fwd+bwd {med['fwd_bwd']:.4f} ms; plain "
+          f"fwd+bwd {med['plain_fwd_bwd']:.4f} ms; SDPA with the same boolean "
+          f"mask (kv repeated to 32 heads) fwd {med['sdpa_fwd']:.4f} ms, "
+          f"fwd+bwd {med['sdpa_fwd_bwd']:.4f} ms [{card}]", flush=True)
+    return res
+
+
+def train_config(ta, tl, tq, flash: bool, layers: int = 22):
+    """bench.py's mllm_train model (bench.py:585-599): TinyLlama-1.1B geometry
+    (vocab 32000, hidden 2048, 22 layers, 32 heads, 4 KV heads, FFN 5632),
+    LoRA r 16 on all seven projections, two 2-layer Q-Formers at width 768
+    with 32 and 8 queries, video and audio dims 1024, loss_chunk 128."""
+    llm = tl.LLMConfig(vocab_size=32000, hidden_size=2048, num_layers=layers,
+                       num_heads=32, num_kv_heads=4, intermediate_size=5632,
+                       lora_r=16, use_flash_attention=flash)
+    qf = dict(hidden_size=768, num_layers=2, num_heads=12, intermediate_size=3072)
+    return ta.AffectGPTConfig(
+        llm=llm, video_qformer=tq.QFormerConfig(num_queries=32, **qf),
+        audio_qformer=tq.QFormerConfig(num_queries=8, **qf), video_dim=1024,
+        audio_dim=1024, max_video_frames=8, max_audio_frames=8, loss_chunk=128)
+
+
+def train_batch(nav: int, lens=B3_LENS, S: int = 512, seed: int = 2):
+    """bench.py's batch (seed 2, AV block spliced at 1, answer tokens after
+    it), with the rows right-padded to ``lens``: pads carry mask 0 and
+    label -100."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    ids = rng.integers(1, 32000, size=(B, S)).astype(np.int32)
+    ids[:, 1: 1 + nav] = 0
+    mask = np.zeros((B, S), np.int32)
+    labels = np.full((B, S), -100, np.int64)
+    for b, n in enumerate(lens):
+        mask[b, :n] = 1
+        labels[b, 1 + nav: n] = rng.integers(0, 32000, size=n - 1 - nav)
+    return {"video_feats": rng.normal(size=(B, 8, 1024)).astype(np.float32),
+            "audio_feats": rng.normal(size=(B, 8, 1024)).astype(np.float32),
+            "input_ids": ids, "splice_start": np.full(B, 1, np.int32),
+            "attention_mask": mask, "labels": labels}
+
+
+def set_flash(tl, model, on: bool) -> None:
+    """Switch every LLM module of ``model`` between kernel B3 and the eager
+    attention, keeping the weights."""
+    for m in model.modules():
+        if isinstance(getattr(m, "cfg", None), tl.LLMConfig):
+            m.cfg = dataclasses.replace(m.cfg, use_flash_attention=on)
+
+
+LORA_GRADS = tuple(f"llm.layers.0.self_attn.{p}.lora_B"
+                   for p in ("q_proj", "k_proj", "v_proj"))
+
+
+B3_WRAPPERS = ("flash_attention_causal_fwd", "flash_attention_causal_bwd_prep",
+               "flash_attention_causal_bwd_dkv", "flash_attention_causal_bwd_dq")
+
+
+def phase_train(torch, fc, ta, tl, tq, tr, card):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = train_config(ta, tl, tq, flash=True)
+    t0 = time.perf_counter()
+    model = ta.build(cfg, "cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = train_batch(model.num_av_tokens)
+    B, S = batch["input_ids"].shape
+    steps = 10
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    rcfg = tr.RunnerConfig(max_epoch=1, iters_per_epoch=steps + 2, batch_size=B,
+                           warmup_steps=1, init_lr=5e-4, min_lr=1e-4,
+                           compute_dtype="bf16", output_dir=out_dir)
+    runner = tr.Runner(rcfg, model)
+    n_train = sum(p.numel() for p in runner.params)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()
+             if p.requires_grad}
+    print(f"[10 train] AffectGPT, TinyLlama-1.1B geometry + 2 Q-Formers, random "
+          f"init on the card ({n_params / 1e6:.1f} M params, {n_train / 1e6:.2f} M "
+          f"trainable in fp32, the frozen base in bf16) {init_s:.1f} s [{card}]",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [runner.train_step(batch)]   # warm-up step
+    torch.cuda.synchronize()
+    after1 = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    # the main path's run: the counts start at 0 here and are read right after
+    for name in B3_WRAPPERS:
+        getattr(fc, name).launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(runner.train_step(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(fc, name).launches for name in B3_WRAPPERS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in losses]
+    step_ms = wall / steps * 1e3
+    L = cfg.llm.num_layers
+    print(f"[10 train] B={B} S={S} (valid lengths {list(B3_LENS)}), bf16, flash "
+          f"(B3): {steps} steps in {wall:.3f} s = {step_ms:.1f} ms/step, "
+          f"{B * S * steps / wall:.0f} tokens/s ({sum(B3_LENS) * steps / wall:.0f} "
+          f"valid tokens/s); peak memory {peak_gb:.2f} GB; B3 launches "
+          f"{launches} for {steps} steps x {L} layers [{card}]", flush=True)
+    print(f"[10 train] loss trajectory (warm-up step first): "
+          f"{[round(x, 4) for x in losses]} [{card}]", flush=True)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(all(n == steps * L for n in launches.values()),
+          f"B3 launches {launches}, want {steps * L} each")
+
+    wall_p, busy, top = device_profile(torch, lambda: runner.train_step(batch))
+    top_s = ", ".join(f"{n[:60]} {t:.1f} ms" for n, t in top)
+    print(f"[10 train] profile of one step: wall {wall_p:.1f} ms under the "
+          f"profiler ({step_ms:.1f} ms unprofiled), device busy {busy:.1f} ms, "
+          f"idle share {1 - busy / step_ms:.3f} of the unprofiled step; top "
+          f"device ops: {top_s} [{card}]", flush=True)
+
+    # executed FLOP per step: torch's counter over the aten ops (no dW is
+    # computed for the frozen base, so none is counted) plus B3's products,
+    # which it cannot see: forward 2 and backward 5 products over the pairs
+    # the mask lets through (the kernels execute 7: dkv and dq each
+    # recompute S and dP)
+    with FlopCounterMode(display=False) as counter:
+        runner.train_step(batch)
+    hd, nh = cfg.llm.head_dim, cfg.llm.num_heads
+    attn = L * 2.0 * hd * nh * causal_pairs(B3_LENS, S) * (2 + 5)
+    flops = counter.get_total_flops() + attn
+    print(f"[10 train] executed work per step {flops / 1e12:.3f} TFLOP "
+          f"({counter.get_total_flops() / 1e12:.3f} in matmuls torch counts, "
+          f"{attn / 1e12:.3f} in B3): {flops / step_ms / 1e9:.1f} TFLOP/s, "
+          f"{flops / step_ms / 1e9 / (PEAK['bf16'] / 1e12):.3f} of the bf16 "
+          f"peak [{card}]", flush=True)
+
+    # the LoRA gradients of layer 0's attention projections after the first
+    # step, flash against eager: they pass through every layer's attention
+    # backward (dQ, dK, dV), which the loss alone hardly sees at random init
+    def lora_grads(on: bool) -> dict:
+        set_flash(tl, model, on)
+        model.zero_grad(set_to_none=True)
+        loss, _ = model(runner.place(batch))
+        loss.backward()
+        got = {n: p.grad.float().clone() for n, p in model.named_parameters()
+               if n in LORA_GRADS}
+        model.zero_grad(set_to_none=True)
+        return got
+
+    def load(weights: dict) -> None:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n in weights:
+                    p.copy_(weights[n])
+
+    load(after1)
+    g_flash, g_eager = lora_grads(True), lora_grads(False)
+    d_grad = {n.split(".")[-2]: rel_err(torch, g_flash[n], g_eager[n])
+              for n in LORA_GRADS}
+    print(f"[10 train] LoRA gradients of layer 0 after the first step, flash vs "
+          f"eager: {d_grad} of max|eager| (limit {LORA_GRAD_TOL}) [{card}]",
+          flush=True)
+    check(max(d_grad.values()) <= LORA_GRAD_TOL, f"flash vs eager LoRA grads {d_grad}")
+    del g_flash, g_eager, after1
+
+    # the same steps with the eager attention, from the same weights
+    load(start)
+    set_flash(tl, model, False)
+    eager = tr.Runner(rcfg, model)
+    e_losses = [eager.train_step(batch).item() for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eager.train_step(batch)
+    torch.cuda.synchronize()
+    e_ms = (time.perf_counter() - t0) / 3 * 1e3
+    d = [abs(a - b) / abs(b) for a, b in zip(losses[:2], e_losses)]
+    print(f"[10 train] eager attention: {e_ms:.1f} ms/step, {B * S / e_ms * 1e3:.0f} "
+          f"tokens/s; loss flash vs eager (valid rows) at the first step "
+          f"{losses[0]:.6f} vs {e_losses[0]:.6f} ({d[0]:.2e}), after it "
+          f"{losses[1]:.6f} vs {e_losses[1]:.6f} ({d[1]:.2e}) (limit "
+          f"{LLM_FLASH_TOL}) [{card}]", flush=True)
+    check(max(d) <= LLM_FLASH_TOL, f"flash vs eager loss {d}")
+    del model, runner, eager, start
+    torch.cuda.empty_cache()
+
+    # fp32: the card (B3's FMA kernels) against the CPU (its plain version)
+    # at full width with 2 LLM layers of the same weights
+    cfg2 = train_config(ta, tl, tq, flash=True, layers=2)
+    cpu = ta.build(cfg2, "cpu", seed=1)
+    gpu = ta.AffectGPT(cfg2, "cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    small = train_batch(cpu.num_av_tokens, lens=(128, 77), S=128, seed=4)
+    res = {}
+    for dev, m in (("cpu", cpu), ("cuda", gpu)):
+        ta.set_trainable(m)
+        loss, _ = m({k: torch.from_numpy(v).to(dev) for k, v in small.items()})
+        loss.backward()
+        res[dev] = (loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()
+                                  if p.grad is not None})
+    names = ("llm.layers.1.self_attn.q_proj.lora_B", "video_qformer.ffn1_0.weight")
+    d_loss = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    d_grad = {n: rel_err(torch, res["cuda"][1][n], res["cpu"][1][n]) for n in names}
+    print(f"[10 train] fp32 card vs CPU (full width, 2 LLM layers, B=2 S=128): "
+          f"loss {res['cuda'][0]:.6f} vs {res['cpu'][0]:.6f} ({d_loss:.2e}, limit "
+          f"1e-4); gradients {d_grad} of max|cpu| (limit 1e-3) [{card}]", flush=True)
+    check(d_loss <= 1e-4, f"fp32 card vs CPU loss {d_loss}")
+    check(max(d_grad.values()) <= 1e-3, f"fp32 card vs CPU gradients {d_grad}")
+    return launches
+
+
+def phase_cli_train(torch, fc, card):
+    """The training CLI on the card: its tiny LLM at width 256 has head dim
+    64, so its attention runs kernel B3 without being asked."""
+    from mertools_tpu_torch.cli import train_mllm
+
+    rng = np.random.default_rng(3)
+    names = [f"clip{i}" for i in range(12)]
+    with tempfile.TemporaryDirectory() as d:
+        for sub in ("face", "audio"):
+            os.makedirs(os.path.join(d, sub))
+            for n in names:
+                np.save(os.path.join(d, sub, f"{n}.npy"), rng.normal(
+                    size=(int(rng.integers(3, 9)), 1024)).astype(np.float32))
+        with open(os.path.join(d, "openset.csv"), "w") as f:
+            f.write("name,openset\n" + "".join(
+                f"{n},\"['happy', 'surprised']\"\n" for n in names))
+        with open(os.path.join(d, "reason.csv"), "w") as f:
+            f.write("name,reason\n" + "".join(
+                f"{n},the person smiles and raises the eyebrows\n" for n in names))
+        with open(os.path.join(d, "subtitle.csv"), "w") as f:
+            f.write("name,english\n" + "".join(f"{n},what a day\n" for n in names))
+        cfg = os.path.join(d, "train.yaml")
+        with open(cfg, "w") as f:
+            f.write(f"""model:
+  llm_checkpoint: tiny
+  llm_hidden_size: 256
+  vocab_size: 256
+  lora_r: 4
+  video_dim: 1024
+  audio_dim: 1024
+  fusion: attention
+  multi_fusion_type: attention
+datasets:
+  openset_csv: {d}/openset.csv
+  reason_csv: {d}/reason.csv
+  subtitle_csv: {d}/subtitle.csv
+  face_or_frame: multiface_audio_face_text
+  video_feat_dir: {d}/face
+  face_feat_dir: {d}/face
+  audio_feat_dir: {d}/audio
+  label_type: hybird
+run:
+  max_epoch: 2
+  iters_per_epoch: 4
+  batch_size: 4
+  warmup_steps: 2
+  max_len: 256
+  valid_frac: 0.25
+  amp: bf16
+  output_dir: {d}/out
+""")
+        for name in B3_WRAPPERS:
+            getattr(fc, name).launches = 0
+        t0 = time.perf_counter()
+        train_mllm.main([f"--config={cfg}"])
+        train_mllm.main([f"--config={cfg}", "--options", "run.max_epoch=3",
+                         f"run.resume_ckpt_path={d}/out/checkpoint_1"])
+        dt = time.perf_counter() - t0
+        launches = {name: getattr(fc, name).launches for name in B3_WRAPPERS}
+        with open(os.path.join(d, "out", "log.txt")) as f:
+            log = [json.loads(line) for line in f]
+        made = sorted(os.listdir(os.path.join(d, "out")))
+    check([e["epoch"] for e in log] == [0, 1, 2], f"log epochs {log}")
+    check(all(math.isfinite(e["train_loss"]) for e in log),
+          f"non-finite losses {log}")
+    check(all(n > 0 for n in launches.values()), f"CLI B3 launches {launches}")
+    for want in ("checkpoint_0", "checkpoint_1", "checkpoint_2", "checkpoint_best",
+                 "model"):
+        check(want in made, f"CLI wrote {made}")
+    print(f"[11 cli] train_mllm (tiny LLM at width 256, head dim 64, "
+          f"multiface_audio_face_text, attention fusion, bf16, 12 clips with a "
+          f"25% validation split) 2 epochs, then resumed from checkpoint_1 for "
+          f"epoch 2, on the card in {dt:.1f} s: train losses "
+          f"{[(e['epoch'], round(e['train_loss'], 4)) for e in log]}; B3 "
+          f"launches {launches}; wrote {made} [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -595,8 +1092,13 @@ def main() -> int:
     from mertools_tpu_torch.encoders import wav2vec2 as tw
     from mertools_tpu_torch.encoders import whisper as tws
     from mertools_tpu_torch.features import audio as ta
+    from mertools_tpu_torch.mllm import affectgpt as tga
+    from mertools_tpu_torch.mllm import llm as tl
+    from mertools_tpu_torch.mllm import qformer as tq
+    from mertools_tpu_torch.mllm import runner as tr
     from mertools_tpu_torch.ops import _kernels
     from mertools_tpu_torch.ops import flash_attention as fa
+    from mertools_tpu_torch.ops import flash_attention_causal as fc
     from mertools_tpu_torch.ops import mel
     from mertools_tpu_torch.ops import mel_fused as mf
 
@@ -625,25 +1127,45 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_cli_whisper(torch, mf, ta, card)
+    torch.cuda.empty_cache()
 
-    b = kres["bf16"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
+    b3 = phase_b3(torch, fc, card)
+    train_launches = phase_train(torch, fc, tga, tl, tq, tr, card)
+    phase_cli_train(torch, fc, card)
+
+    b, m = kres["bf16"], mres
+    kernels = [{
+        "name": "flash_attention_fwd", "route": "cuda",
         "source": "mertools_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "mertools_tpu/encoders/wav2vec2.py:160",
-        "launches": launches,
-        "max_abs_err": b["max_abs_err"],
-        "ms": b["ms"],
-        "plain_ms": b["plain_ms"]}, {
-        "name": "mel_power_fwd",
-        "route": "cuda",
+        "launches": launches, "max_abs_err": b["max_abs_err"], "ms": b["ms"],
+        "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"], "library_ms": b["library_ms"]}, {
+        "name": "mel_power_fwd", "route": "cuda",
         "source": "mertools_tpu_torch/csrc/mel_power_fwd.cu",
         "replaces": "mertools_tpu/ops/mel_pallas.py:95",
-        "launches": feat_launches + asr_launches,
-        "max_abs_err": mres["max_abs_err"],
-        "ms": mres["ms"],
-        "plain_ms": mres["plain_ms"]}]}))
+        "launches": feat_launches + asr_launches, "max_abs_err": m["max_abs_err"],
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None}]
+    lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    for key, wrapper, replaces in (
+            ("fwd", "flash_attention_causal_fwd",
+             f"mertools_tpu/mllm/llm.py:194 ({lib}:758)"),
+            ("prep", "flash_attention_causal_bwd_prep",
+             f"mertools_tpu/mllm/llm.py:194 ({lib}:273, di of the backward)"),
+            ("dkv", "flash_attention_causal_bwd_dkv",
+             f"mertools_tpu/mllm/llm.py:194 ({lib}:1121)"),
+            ("dq", "flash_attention_causal_bwd_dq",
+             f"mertools_tpu/mllm/llm.py:194 ({lib}:1456)")):
+        r = b3[key]
+        kernels.append({
+            "name": wrapper, "route": "cuda",
+            "source": "mertools_tpu_torch/csrc/flash_attention_causal.cu",
+            "replaces": replaces, "launches": train_launches[wrapper],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

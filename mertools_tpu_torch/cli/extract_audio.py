@@ -95,7 +95,7 @@ def main(argv=None):
     from ..core.config import resolve_dataset_args
     from ..core.profiling import trace
     from ..features.audio import AudioExtractor, WhisperAudioExtractor
-    from mertools_tpu.io import wav as wav_io
+    from ..io import wav as wav_io
 
     p = argparse.ArgumentParser("extract_audio")
     p.add_argument("--model_name", type=str, required=True)

@@ -41,9 +41,8 @@ def cmd_generate(args):
     from transformers import WhisperModel as HFWhisper
     from transformers import WhisperTokenizer
 
-    from mertools_tpu.io import wav as wav_io
-
     from ..asr.pipeline import WhisperASR
+    from ..io import wav as wav_io
     from ..encoders.whisper import WhisperConfig, load_hf_state_dict
 
     hf = HFWhisper.from_pretrained(args.model)

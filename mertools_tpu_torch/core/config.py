@@ -1,10 +1,12 @@
-"""Dataset path registry (port of ``mertools_tpu/core/config.py:51-141``).
+"""Dataset path registry and YAML configs (port of
+``mertools_tpu/core/config.py:51-149``).
 
 What ``--dataset`` needs: :class:`DatasetPaths`, :class:`PathRegistry`, the
 global :data:`REGISTRY`, :func:`configure_from_env` and
-:func:`resolve_dataset_args`. The registry YAML and its environment variable
-(``$MERTOOLS_TPU_CONFIG``) are the JAX package's, so one file serves both.
-PyYAML is imported only when a registry file is read.
+:func:`resolve_dataset_args`; and :func:`load_yaml` for the training CLI.
+The registry YAML and its environment variable (``$MERTOOLS_TPU_CONFIG``)
+are the JAX package's, so one file serves both. PyYAML is imported only
+when a YAML file is read.
 """
 
 from __future__ import annotations
@@ -59,10 +61,7 @@ class PathRegistry:
 
     @classmethod
     def from_yaml(cls, path: str) -> "PathRegistry":
-        import yaml
-
-        with open(path, "r") as f:
-            raw = yaml.safe_load(f) or {}
+        raw = load_yaml(path)
         reg = cls(saved_root=raw.get("saved_root", "./saved"))
         for name, spec in raw.get("datasets", {}).items():
             if isinstance(spec, str):
@@ -105,3 +104,10 @@ def configure_from_env() -> PathRegistry:
         global REGISTRY
         REGISTRY = PathRegistry.from_yaml(cfg)
     return REGISTRY
+
+
+def load_yaml(path: str) -> dict:
+    import yaml
+
+    with open(path, "r") as f:
+        return yaml.safe_load(f) or {}

@@ -88,6 +88,20 @@ SIGNATURES = {
                                + [ctypes.c_void_p]),
     "mt_mel_power_fwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                          + [ctypes.c_void_p]),
+    # B3: tensors, sizes, dtype flag and device, a host int array of
+    # (b, t, h) strides per tensor, the stream
+    "mt_flash_attention_causal_fwd": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]),
+    "mt_flash_attention_causal_bwd_prep": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]),
+    "mt_flash_attention_causal_bwd_dkv": (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]),
+    "mt_flash_attention_causal_bwd_dq": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]),
 }
 
 

@@ -1,7 +1,7 @@
 """The port's extract_audio CLI, mirroring tests/test_cli_extract_audio.py:
 prefetch-chunked loop, idempotent skip, int16 wire, --dataset registry
 resolution, on tiny random weights with --device cpu; and the package's
-promise never to import JAX."""
+promise never to import JAX or the JAX package (chip_smoke.py's too)."""
 
 import os
 import subprocess
@@ -125,18 +125,63 @@ def test_dataset_missing_from_registry_exits(tmp_path, monkeypatch):
               "--random_init", "--device", "cpu"])
 
 
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mertools_tpu")
+
+
 def test_port_never_imports_jax():
-    """Run in a fresh interpreter: the test process itself imports JAX
-    (tests/conftest.py)."""
-    code = ("import sys, mertools_tpu_torch, mertools_tpu_torch.cli.extract_audio, "
-            "mertools_tpu_torch.features.audio, mertools_tpu_torch.core.profiling, "
-            "mertools_tpu_torch.asr.pipeline, mertools_tpu_torch.asr.decode, "
-            "mertools_tpu_torch.cli.main_asr, mertools_tpu_torch.encoders.whisper, "
-            "mertools_tpu_torch.ops.mel_fused\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
-            "assert not bad, bad\n")
+    """Import every module of the package (pkgutil.walk_packages) in a fresh
+    interpreter, since the test process itself imports JAX
+    (tests/conftest.py), and find no JAX-family module and no module of the
+    JAX package in sys.modules."""
+    code = ("import importlib, pkgutil, sys, mertools_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.')]\n"
+            "for n in names:\n"
+            "    importlib.import_module(n)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "assert not bad, bad\n"
+            "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 30   # every module was walked
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """chip_smoke.py's imports, read with ast (it may import the port)."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert "mertools_tpu_torch" in {n.split(".")[0] for n in names}
+    bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_wav_reader_matches_the_jax_package(tmp_path):
+    """The port's copy of io/wav.py reads and resamples a written WAV to the
+    same samples as the JAX package's module."""
+    from mertools_tpu.io import wav as jwav
+    from mertools_tpu_torch.io import wav as twav
+
+    rng = np.random.default_rng(4)
+    pcm = (rng.normal(size=(3000, 2)) * 3000).astype(np.int16)   # stereo
+    path = tmp_path / "stereo_22k.wav"
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(22050)
+        f.writeframes(pcm.tobytes())
+    assert twav.have_native() == jwav.have_native()
+    got, sr = twav.read_wav(str(path))
+    want, sr_j = jwav.read_wav(str(path))
+    assert sr == sr_j == 22050
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(twav.read_wav_16k(str(path)),
+                                  jwav.read_wav_16k(str(path)))

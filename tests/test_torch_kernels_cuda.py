@@ -1,6 +1,6 @@
-"""Kernels B1 (csrc/flash_attention_fwd.cu) and B2 (csrc/mel_power_fwd.cu)
-against their plain versions, on the card. Needs an NVIDIA Hopper GPU and
-nvcc; elsewhere every test skips.
+"""Kernels B1 (csrc/flash_attention_fwd.cu), B2 (csrc/mel_power_fwd.cu) and
+B3 (csrc/flash_attention_causal.cu) against their plain versions, on the
+card. Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips.
 
 This file imports neither JAX nor the JAX package, so on a machine without
 JAX it runs without the suite's conftest:
@@ -133,3 +133,90 @@ def test_mel_kernel_rejects_what_it_does_not_take(cuda):
         mel_power(torch.zeros(1, 16000, device=cuda))
     with pytest.raises(ValueError, match="float32"):
         mel_power(torch.zeros(1, 480000, device=cuda, dtype=torch.float64))
+
+
+# B3 (csrc/flash_attention_causal.cu): forward, lse and dQ/dK/dV against the
+# plain version and autograd through it, max |kernel - ref| / max |ref|.
+# fp32 differs in summation order only; bf16 rounds P and dS to bf16 inside
+# the products and the outputs to 8 mantissa bits
+B3_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+
+
+def _b3_inputs(cuda, dtype, hd, nh=8, nkv=2, lens=(200, 171, 64, 33, 1), S=200,
+               seed=0):
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, n, hd))
+                                .astype(np.float32)).to(cuda, dtype)
+               for n in (nh, nkv, nkv))
+    seg = torch.tensor([[1 if t < n else 0 for t in range(S)] for n in lens],
+                       dtype=torch.int32, device=cuda)
+    dout = torch.from_numpy(rng.normal(size=(B, S, nh, hd))
+                            .astype(np.float32)).to(cuda, dtype)
+    return q, k, v, seg, dout
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,nh,nkv", [(64, 8, 2), (128, 4, 4)])
+def test_b3_kernels_match_plain(cuda, dtype, hd, nh, nkv):
+    from mertools_tpu_torch.ops import flash_attention_causal as fc
+
+    q, k, v, seg, dout = _b3_inputs(cuda, dtype, hd, nh, nkv)
+    fwd_tol, grad_tol = B3_TOL[dtype]
+    n0 = [f.launches for f in (fc.flash_attention_causal_fwd,
+                               fc.flash_attention_causal_bwd_prep,
+                               fc.flash_attention_causal_bwd_dkv,
+                               fc.flash_attention_causal_bwd_dq)]
+    qk = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fc.flash_attention_causal(*qk, seg)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    n1 = [f.launches for f in (fc.flash_attention_causal_fwd,
+                               fc.flash_attention_causal_bwd_prep,
+                               fc.flash_attention_causal_bwd_dkv,
+                               fc.flash_attention_causal_bwd_dq)]
+    assert [b - a for a, b in zip(n0, n1)] == [1, 1, 1, 1]
+
+    ref_in = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    ref, ref_lse = fc.causal_attention_fwd_ref(*ref_in, seg)
+    ref.backward(dout.float())
+    _, lse = fc.flash_attention_causal_fwd(q, k, v, seg)
+    assert torch.isfinite(out).all()
+    assert _rel(out, ref) <= fwd_tol
+    # lse is fp32 on both sides; bf16 moves it only through the bf16 q, k
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    for name, got, want in zip("qkv", qk, ref_in):
+        assert _rel(got.grad, want.grad) <= grad_tol, name
+
+
+def test_b3_ragged_length_not_a_tile_multiple(cuda):
+    """S = 97 (not a multiple of 32 or 64), one row fully padded but row 0."""
+    from mertools_tpu_torch.ops import flash_attention_causal as fc
+
+    q, k, v, seg, dout = _b3_inputs(cuda, torch.float32, 64, 4, 1,
+                                    lens=(97, 1), S=97, seed=3)
+    out, lse = fc.flash_attention_causal_fwd(q, k, v, seg)
+    ref, ref_lse = fc.causal_attention_fwd_ref(q, k, v, seg)
+    assert _rel(out, ref) <= 1e-5
+    di = fc.flash_attention_causal_bwd_prep(out, dout)
+    assert _rel(di, fc.bwd_prep_ref(out, dout)) <= 1e-5
+    dk, dv = fc.flash_attention_causal_bwd_dkv(q, k, v, seg, dout, lse, di)
+    rdk, rdv = fc.bwd_dkv_ref(q, k, v, seg, dout, lse, di)
+    dq = fc.flash_attention_causal_bwd_dq(q, k, v, seg, dout, lse, di)
+    assert _rel(dk, rdk) <= 1e-4 and _rel(dv, rdv) <= 1e-4
+    assert _rel(dq, fc.bwd_dq_ref(q, k, v, seg, dout, lse, di)) <= 1e-4
+
+
+def test_b3_cuda_tensors_never_fall_back(cuda):
+    from mertools_tpu_torch.ops.flash_attention_causal import \
+        flash_attention_causal
+
+    q, k, v, seg, _ = _b3_inputs(cuda, torch.float32, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_causal(q[..., :32], k[..., :32], v[..., :32], seg)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention_causal(q.half(), k.half(), v.half(), seg)
