@@ -33,7 +33,8 @@ KV heads, vocab 32000) — and checks them:
 9. B3: the causal flash attention's four kernels (forward, di pre-pass,
    dK/dV, dQ) against their plain version and autograd at TinyLlama's
    attention (B 8, S 512, ragged padding; fp32 and bf16; hd 64 and 128),
-   with CUDA-event times beside SDPA's;
+   dQ/dK/dV bit-equal across two launches, device times beside SDPA's
+   forward, backward alone and fwd+bwd, and at B 4 x S 1024;
 10. training: bench.py's AffectGPT step (B 8 x S 512, bf16, chunked loss)
    through ``Runner.train_step`` on kernel B3, a warm-up step and 10 timed
    steps (tokens/s, memory, launch counts, the loss trajectory), a profile
@@ -41,6 +42,12 @@ KV heads, vocab 32000) — and checks them:
    fp32 on the card against the CPU at full width with 2 LLM layers;
 11. CLI: ``train_mllm`` on synthetic features (best-setup stream mode),
    2 epochs, then resumed for a third.
+
+    python3 chip_smoke.py --b3-times DIR
+
+prints only phase 9's bf16 timing lines for the port in the checkout DIR
+(an earlier commit unpacked beside this one), to compare B3 versions within
+one call.
 
 Before each path runs, its kernels' launch counts are set to 0; they are
 read right after it. It prints one JSON line about the kernels and, last, one JSON line
@@ -55,6 +62,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -93,6 +101,52 @@ def bound(n_bytes: float, flops: float, kind: str) -> tuple[float, str]:
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
+def ptxas_usage(log: str) -> dict:
+    """``-Xptxas -v`` per kernel: {"name<template args>": (registers, spill
+    store bytes, spill load bytes)}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = demangle(m.group(1))
+            out[name] = [0, 0, 0]
+        elif name and "spill stores" in line:
+            out[name][1:] = [int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line)]
+        elif name and "registers" in line:
+            out[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def demangle(sym: str) -> str:
+    """A kernel's mangled name as ``name<args>``: the last component of its
+    nested name and its integer template arguments."""
+    j, parts = (3 if sym.startswith("_ZN") else 2), []
+    while j < len(sym) and sym[j].isdigit():
+        k = j
+        while sym[k].isdigit():
+            k += 1
+        parts.append(sym[k:k + int(sym[j:k])])
+        j = k + int(sym[j:k])
+    args = []
+    if sym[j:j + 1] == "I":
+        args = re.findall(r"L(?:i|j|b)(\d+)E", sym[j:sym.find("EE", j) + 2])
+    name = parts[-1] if parts else sym
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def check_no_spills(log: str) -> dict:
+    """Phase 1: the bf16 backward kernels appear in the build's ``ptxas -v``
+    output (this build's, or the one kept beside a reused library) at both
+    head dims, without spill bytes. Returns every kernel's usage."""
+    usage = ptxas_usage(log)
+    for name in ("dkv_wgmma", "dq_wgmma"):
+        got = {k: u for k, u in usage.items() if k.startswith(name)}
+        check(len(got) == 2 and all(u[1] == u[2] == 0 for u in got.values()),
+              f"{name}: ptxas reports {got}, want two head dims without spills")
+    return usage
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
@@ -104,11 +158,22 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int = 20) -> list[float]:
+# ~5 ms of device clock: long enough for the host to queue a kernel's
+# wrapper (or a plain version's dozens of ops) behind it
+SLEEP_CYCLES = 10_000_000
+
+
+def cuda_ms(torch, fn, reps: int = 20, device_only: bool = False) -> list[float]:
+    """CUDA-event ms of ``fn`` per rep. With ``device_only`` the device first
+    sleeps while the host queues the start event and ``fn``'s launches, so
+    the window holds device time only, not the wrapper's Python (the kernel
+    tables use this); without, the host's queueing counts too."""
     ts = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
@@ -161,7 +226,7 @@ def phase_kernel(torch, fa, card):
         times = {n: [] for n in runs}
         for _ in range(20):  # in turns, so drift hits all three alike
             for n, f in runs.items():
-                times[n] += cuda_ms(torch, f, reps=1)
+                times[n] += cuda_ms(torch, f, reps=1, device_only=True)
         med = {n: float(np.median(t)) for n, t in times.items()}
         # q, k, v read and out written once; both products over the keys
         # each row attends to (rows with kv_len 0 do none)
@@ -359,7 +424,7 @@ def phase_mel(torch, mel, mf, card):
     times = {n: [] for n in runs}
     for _ in range(20):  # in turns, so drift hits all alike
         for n, f in runs.items():
-            times[n] += cuda_ms(torch, f, reps=1)
+            times[n] += cuda_ms(torch, f, reps=1, device_only=True)
     med = {n: float(np.median(t)) for n, t in times.items()}
     # the operations the function needs per frame (not the kernel's dense
     # DFT): the window, a 400-point real FFT (2.5 N log2 N), the power of
@@ -692,8 +757,11 @@ def b3_check(torch, fc, kind, nh, nkv, hd):
 def phase_b3(torch, fc, card):
     """Kernel B3 (four kernels) against its plain version at TinyLlama's
     attention (B 8, S 512, nh 32, nkv 4, hd 64, ragged right padding), fp32
-    and bf16, plus hd 128 at nh 28 (Qwen2.5-7B); CUDA-event times of each
-    kernel, of the kernels' fwd+bwd, of the plain version and of SDPA."""
+    and bf16, plus hd 128 at nh 28 (Qwen2.5-7B); the backward kernels
+    bit-equal across two launches; device times of each kernel, of B3's
+    backward and fwd+bwd, of the plain versions and of the yardsticks (SDPA
+    forward, backward alone and fwd+bwd; ``torch.linalg.vecdot`` for di),
+    then the same without the plain versions at B 4 x S 1024."""
     for kind in ("fp32", "bf16"):
         for nh, nkv, hd in ((32, 4, 64), (28, 4, 128)):
             e = b3_check(torch, fc, kind, nh, nkv, hd)
@@ -704,7 +772,8 @@ def phase_b3(torch, fc, card):
                   f"[{card}]", flush=True)
 
     # each kernel against its own plain version on the same inputs, bf16,
-    # at the training shape
+    # at the training shape, and the backward kernels bit for bit against a
+    # second launch (the group's dK/dV sum has a fixed order)
     nh, nkv, hd, S = 32, 4, 64, 512
     q, k, v, seg, dout = b3_inputs(torch, torch.bfloat16, nh, nkv, hd)
     B = q.shape[0]
@@ -712,7 +781,11 @@ def phase_b3(torch, fc, card):
     di = fc.flash_attention_causal_bwd_prep(out, dout)
     dk, dv = fc.flash_attention_causal_bwd_dkv(q, k, v, seg, dout, lse, di)
     dq = fc.flash_attention_causal_bwd_dq(q, k, v, seg, dout, lse, di)
+    dk2, dv2 = fc.flash_attention_causal_bwd_dkv(q, k, v, seg, dout, lse, di)
+    dq2 = fc.flash_attention_causal_bwd_dq(q, k, v, seg, dout, lse, di)
     torch.cuda.synchronize()
+    check(all(bool(torch.equal(a, b)) for a, b in ((dk, dk2), (dv, dv2), (dq, dq2))),
+          "B3 dkv / dq: two launches on the same inputs differ")
     r_out, _ = fc.causal_attention_fwd_ref(q, k, v, seg)
     r_di = fc.bwd_prep_ref(out, dout)
     r_dk, r_dv = fc.bwd_dkv_ref(q, k, v, seg, dout, lse, di)
@@ -726,7 +799,49 @@ def phase_b3(torch, fc, card):
     for n, r in rel.items():
         check(r <= B3_KERNEL_TOL[n], f"B3 {n} vs its plain version: {r} of "
               f"max|ref| > {B3_KERNEL_TOL[n]}")
+    del dk2, dv2, dq2, r_out, r_di, r_dk, r_dv, r_dq
 
+    med = b3_times(torch, fc, B3_LENS, S, plain=True)
+    # bytes: every input read once, every output written once; operations:
+    # the products over the pairs this data's mask lets through
+    pairs = causal_pairs(B3_LENS, S) * nh
+    big, small = B * S * nh * hd * 2, B * S * nkv * hd * 2   # bf16 tensors
+    rows, segb = B * nh * S * 4, B * S * 4                   # fp32 rows, seg
+    work = {"fwd": (2 * big + 2 * small + segb + rows, 4.0 * hd * pairs, "bf16"),
+            "prep": (2 * big + rows, 2.0 * B * S * nh * hd, "fp32"),
+            "dkv": (2 * big + 4 * small + segb + 2 * rows, 8.0 * hd * pairs, "bf16"),
+            "dq": (3 * big + 2 * small + segb + 2 * rows, 6.0 * hd * pairs, "bf16")}
+    library = {"fwd": med["sdpa_fwd"], "prep": med["vecdot"]}
+    res = {}
+    for n, (nb, fl, kind) in work.items():
+        b_ms, b_by = bound(nb, fl, kind)
+        res[n] = dict(max_abs_err=err[n], ms=med[n], plain_ms=med[f"plain_{n}"],
+                      library_ms=library.get(n), bound_ms=b_ms, bound_by=b_by)
+        print(f"[9 b3] {n}: kernel {med[n]:.4f} ms, plain {med[f'plain_{n}']:.4f} "
+              f"ms, library {library.get(n) or float('nan'):.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {fl / 1e9:.2f} GFLOP), "
+              f"max_abs_err vs plain {err[n]:.3e} = {rel[n]:.3e} of max|ref| "
+              f"(limit {B3_KERNEL_TOL[n]}) [{card}]", flush=True)
+    print(f"[9 b3] backward kernels bit-equal across two launches (dq, dk, dv) "
+          f"[{card}]", flush=True)
+    b3_line(med, f"B=8 S=512 lens={list(B3_LENS)}", card)
+    print(f"[9 b3] plain fwd+bwd {med['plain_fwd_bwd']:.4f} ms [{card}]", flush=True)
+    # the S 1024 training shape: the causal walk twice as deep
+    b3_line(b3_times(torch, fc, (1024,) * 4, 1024, plain=False),
+            "B=4 S=1024 full lengths", card)
+    return res
+
+
+def b3_times(torch, fc, lens, S: int, plain: bool) -> dict:
+    """Device-only CUDA-event medians of 10, in turns, bf16 at nh 32, nkv 4,
+    hd 64: each B3 kernel; B3's and SDPA's backward alone (the graph's
+    forward ran outside the window) and fwd+bwd; SDPA's forward with the
+    same boolean mask (kv repeated to 32 heads); di's one-call yardstick
+    ``torch.linalg.vecdot``; with ``plain``, the plain versions."""
+    nh, nkv, hd = 32, 4, 64
+    q, k, v, seg, dout = b3_inputs(torch, torch.bfloat16, nh, nkv, hd, lens=lens, S=S)
+    out, lse = fc.flash_attention_causal_fwd(q, k, v, seg)
+    di = fc.flash_attention_causal_bwd_prep(out, dout)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     qh = q.transpose(1, 2).contiguous()
     kh, vh = (t.transpose(1, 2).repeat_interleave(nh // nkv, 1).contiguous()
@@ -737,62 +852,58 @@ def phase_b3(torch, fc, card):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     doh = dout.transpose(1, 2).contiguous()
 
-    def fwd_bwd(f, *ts):
+    def fwd_bwd(f, ts, d):
         for t in ts:
             t.grad = None
-        f().backward(doh if ts[0] is qhg else dout)
+        f().backward(d)
 
+    def bwd(o, ts, d):
+        for t in ts:
+            t.grad = None
+        o.backward(d, retain_graph=True)
+
+    o_b3 = fc.flash_attention_causal(qg, kg, vg, seg)
+    o_sdpa = sdpa(qhg, khg, vhg, attn_mask=mask)
     runs = {
         "fwd": lambda: fc.flash_attention_causal_fwd(q, k, v, seg),
         "prep": lambda: fc.flash_attention_causal_bwd_prep(out, dout),
         "dkv": lambda: fc.flash_attention_causal_bwd_dkv(q, k, v, seg, dout, lse, di),
         "dq": lambda: fc.flash_attention_causal_bwd_dq(q, k, v, seg, dout, lse, di),
+        "bwd": lambda: bwd(o_b3, (qg, kg, vg), dout),
         "fwd_bwd": lambda: fwd_bwd(
-            lambda: fc.flash_attention_causal(qg, kg, vg, seg), qg, kg, vg),
-        "plain_fwd": lambda: fc.causal_attention_fwd_ref(q, k, v, seg),
-        "plain_prep": lambda: fc.bwd_prep_ref(out, dout),
-        "plain_dkv": lambda: fc.bwd_dkv_ref(q, k, v, seg, dout, lse, di),
-        "plain_dq": lambda: fc.bwd_dq_ref(q, k, v, seg, dout, lse, di),
-        "plain_fwd_bwd": lambda: fwd_bwd(
-            lambda: fc.causal_attention_ref(qg, kg, vg, seg), qg, kg, vg),
+            lambda: fc.flash_attention_causal(qg, kg, vg, seg), (qg, kg, vg), dout),
+        "vecdot": lambda: torch.linalg.vecdot(out, dout, dim=-1),
         "sdpa_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+        "sdpa_bwd": lambda: bwd(o_sdpa, (qhg, khg, vhg), doh),
         "sdpa_fwd_bwd": lambda: fwd_bwd(
-            lambda: sdpa(qhg, khg, vhg, attn_mask=mask), qhg, khg, vhg),
+            lambda: sdpa(qhg, khg, vhg, attn_mask=mask), (qhg, khg, vhg), doh),
     }
+    if plain:
+        runs.update({
+            "plain_fwd": lambda: fc.causal_attention_fwd_ref(q, k, v, seg),
+            "plain_prep": lambda: fc.bwd_prep_ref(out, dout),
+            "plain_dkv": lambda: fc.bwd_dkv_ref(q, k, v, seg, dout, lse, di),
+            "plain_dq": lambda: fc.bwd_dq_ref(q, k, v, seg, dout, lse, di),
+            "plain_fwd_bwd": lambda: fwd_bwd(
+                lambda: fc.causal_attention_ref(qg, kg, vg, seg), (qg, kg, vg), dout)})
     for f in runs.values():
         f()
     times = {n: [] for n in runs}
     for _ in range(10):  # in turns, so drift hits all alike
         for n, f in runs.items():
-            times[n] += cuda_ms(torch, f, reps=1)
-    med = {n: float(np.median(t)) for n, t in times.items()}
+            times[n] += cuda_ms(torch, f, reps=1, device_only=True)
+    return {n: float(np.median(t)) for n, t in times.items()}
 
-    # bytes: every input read once, every output written once; operations:
-    # the products over the pairs this data's mask lets through
-    pairs = causal_pairs(B3_LENS, S) * nh
-    big, small = B * S * nh * hd * 2, B * S * nkv * hd * 2   # bf16 tensors
-    rows, segb = B * nh * S * 4, B * S * 4                   # fp32 rows, seg
-    work = {"fwd": (2 * big + 2 * small + segb + rows, 4.0 * hd * pairs, "bf16"),
-            "prep": (2 * big + rows, 2.0 * B * S * nh * hd, "fp32"),
-            "dkv": (2 * big + 4 * small + segb + 2 * rows, 8.0 * hd * pairs, "bf16"),
-            "dq": (3 * big + 2 * small + segb + 2 * rows, 6.0 * hd * pairs, "bf16")}
-    res = {}
-    for n, (nb, fl, kind) in work.items():
-        b_ms, b_by = bound(nb, fl, kind)
-        res[n] = dict(max_abs_err=err[n], ms=med[n], plain_ms=med[f"plain_{n}"],
-                      library_ms=med["sdpa_fwd"] if n == "fwd" else None,
-                      bound_ms=b_ms, bound_by=b_by)
-        print(f"[9 b3] {n}: kernel {med[n]:.4f} ms, plain {med[f'plain_{n}']:.4f} "
-              f"ms, bound {b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, "
-              f"{fl / 1e9:.2f} GFLOP), max_abs_err vs plain {err[n]:.3e} = "
-              f"{rel[n]:.3e} of max|ref| (limit {B3_KERNEL_TOL[n]}) [{card}]",
-              flush=True)
-    print(f"[9 b3] bf16 B=8 S=512 nh=32 nkv=4 hd=64 (median of 10): kernels "
-          f"fwd {med['fwd']:.4f} ms, fwd+bwd {med['fwd_bwd']:.4f} ms; plain "
-          f"fwd+bwd {med['plain_fwd_bwd']:.4f} ms; SDPA with the same boolean "
-          f"mask (kv repeated to 32 heads) fwd {med['sdpa_fwd']:.4f} ms, "
-          f"fwd+bwd {med['sdpa_fwd_bwd']:.4f} ms [{card}]", flush=True)
-    return res
+
+def b3_line(med: dict, shape: str, card: str) -> None:
+    print(f"[9 b3] bf16 {shape} nh=32 nkv=4 hd=64 (device ms, median of 10): "
+          f"fwd {med['fwd']:.4f}, di {med['prep']:.4f}, dkv {med['dkv']:.4f}, dq "
+          f"{med['dq']:.4f}; backward di+dkv+dq {med['prep'] + med['dkv'] + med['dq']:.4f},"
+          f" autograd backward alone {med['bwd']:.4f}, fwd+bwd {med['fwd_bwd']:.4f}; "
+          f"SDPA with the same boolean mask (kv repeated to 32 heads) fwd "
+          f"{med['sdpa_fwd']:.4f}, backward alone {med['sdpa_bwd']:.4f}, fwd+bwd "
+          f"{med['sdpa_fwd_bwd']:.4f}; di as torch.linalg.vecdot {med['vecdot']:.4f} "
+          f"[{card}]", flush=True)
 
 
 def train_config(ta, tl, tq, flash: bool, layers: int = 22):
@@ -1075,13 +1186,34 @@ run:
           f"launches {launches}; wrote {made} [{card}]", flush=True)
 
 
-def main() -> int:
+def b3_times_of(torch, root: str) -> int:
+    """Phase 9's bf16 timing lines (S 512 and S 1024) for the port in the
+    checkout at ``root``, e.g. an earlier commit unpacked beside this one,
+    so two versions of B3 can be compared within one call."""
+    sys.path.insert(0, os.path.abspath(root))
+    from mertools_tpu_torch.ops import flash_attention_causal as fc
+
+    card = card_line()
+    print(f"[b3 times] {fc.__file__} [{card}]", flush=True)
+    b3_line(b3_times(torch, fc, B3_LENS, 512, plain=False),
+            f"B=8 S=512 lens={list(B3_LENS)}", card)
+    b3_line(b3_times(torch, fc, (1024,) * 4, 1024, plain=False),
+            "B=4 S=1024 full lengths", card)
+    return 0
+
+
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs only on the card",
               file=sys.stderr)
         return 1
+    if argv[:1] == ["--b3-times"] and len(argv) == 2:
+        return b3_times_of(torch, argv[1])
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not os.path.isdir(os.path.join(HERE, "mertools_tpu_torch")):
         print("chip_smoke: mertools_tpu_torch is not beside this script",
               file=sys.stderr)
@@ -1107,10 +1239,10 @@ def main() -> int:
     print(f"[1 device] {kind}; nvidia-smi: {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     path, secs, log = _kernels.build()
-    ptxas = [l.strip() for l in log.splitlines() if "registers" in l]
     print(f"[1 device] kernels {os.path.relpath(path, HERE)}: built in "
-          f"{secs:.1f} s{'' if secs else ' (reused)'}; ptxas: {ptxas} [{card}]",
-          flush=True)
+          f"{secs:.1f} s{'' if secs else ' (reused, with its build log)'}; "
+          f"ptxas -v (registers, spill store/load bytes): "
+          f"{check_no_spills(log)} [{card}]", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1173,4 +1305,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

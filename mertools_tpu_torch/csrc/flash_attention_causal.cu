@@ -18,35 +18,48 @@
 //         up to the diagonal with the online softmax; writes O and the row
 //         logsumexp lse = m + log(l) in fp32.
 //   prep: di[b, h, i] = sum_d dO . O (fp32), one warp per row.
-//   dkv : one block per (64-key tile, kv head, b); loops over the query
-//         heads of the group and, for each, over the query tiles from the
-//         diagonal down; dK and dV of the kv head are the sums over the group,
-//         kept in registers, so no atomics are needed.
-//   dq  : one block per (64-query tile, head, b); loops over the key tiles up
-//         to the diagonal.
+//   dkv : dK and dV, each the sum over the kv head's group of query heads.
+//         bf16: one block per (64-key tile, slice of the group's heads, b),
+//         key tile 0 (the longest walk) first; the blocks of one kv head
+//         form a thread-block cluster that adds their dK and dV through
+//         distributed shared memory in rank order (deterministic, no
+//         atomics). fp32: one block per (key tile, kv head, b) walks the
+//         whole group and sums in registers.
+//   dq  : one block per (64-query tile, head, b), in bf16 the last query
+//         tile (the longest walk) first; loops over the key tiles up to the
+//         diagonal.
 // Tiles wholly above the diagonal are skipped; the ragged edge of S (any
 // length, on the LLM path a multiple of 32) is masked inside the kernel.
 // q, k, v, O and dO are read in the projections' (B, S, heads, hd) layout
 // through strides; lse and di are (B, nh, S) fp32.
 //
-// What bounds it on the H100: at the training shape (B 8, S 512, nh 32,
-// nkv 4, hd 64, bf16) the forward moves ~38 MB (q, o: 16.8 MB each) and does
-// ~8.6 GFLOP of causal products: ~11 us of HBM time against ~9 us of tensor-
-// core time, so bytes bound it; the backward does twice the forward's
-// products over the same bytes and is bound by operations.
-//  * bf16: every product on the tensor cores with mma.sync m16n8k16 (bf16
-//    in, fp32 accumulate), 4 warps of 16 rows; score accumulators become the
-//    A operand of the next product in registers (as in
-//    flash_attention_fwd.cu); operands whose k-dimension runs along the
-//    sequence are staged transposed in shared memory so fragment loads are
-//    32-bit. Not yet pipelined (no cp.async / TMA / wgmma): loads and math of
-//    a tile do not overlap.
+// What bounds it on the H100, at the training shape (B 8, S 512, nh 32,
+// nkv 4, hd 64, bf16, ragged lengths 512 .. 97), counting each input read
+// once, each output written once and the products over the pairs the mask
+// lets through: the forward moves 38 MB for 6.0 GFLOP (11 us of HBM time
+// against 6 us at the bf16 tensor peak: bytes); dkv moves 43.0 MB for 12.0
+// GFLOP (12.8 us against 12.2 us: bytes and operations about equal); dq
+// 55.6 MB for 9.0 GFLOP (16.6 us against 9.1 us: bytes). With the tiles
+// padded to 64 rows dkv executes ~19 GFLOP and dq ~14.
+//  * bf16 forward: every product with mma.sync m16n8k16 (bf16 in, fp32
+//    accumulate), 4 warps of 16 rows; score accumulators become the A
+//    operand of the next product in registers (as in flash_attention_fwd.cu);
+//    V is staged transposed in shared memory. Not yet pipelined.
+//  * bf16 backward (dkv, dq): wgmma on one warpgroup per block, tiles by
+//    cp.async through a ring of three stages (two for dq at hd 128, where
+//    a third would leave one block an SM) in the swizzle wgmma reads both
+//    K-major and MN-major, so no operand is read twice or transposed; the
+//    grids give 2048 blocks at the training shape, the longest walks first
+//    (see the section note above dkv_wgmma).
 //  * fp32 (parity mode): plain FMAs through shared memory, never TF32.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -660,238 +673,581 @@ fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __re
   }
 }
 
-template <int HD>
-constexpr size_t dq_mma_smem() {
-  return sizeof(bf16) * (4 * size_t(kBlock) * (HD + 8) + size_t(HD) * (kBlock + 8)) +
-         sizeof(int) * kBlock;
+// -------------------------------------------- bf16 backward, wgmma (Hopper)
+//
+// The two bf16 backward kernels run one warpgroup (128 threads) per block
+// and run every product as wgmma.mma_async m64nNk16 (bf16 in, fp32
+// accumulate) on a 64-row tile. Tiles come from HBM by cp.async (16-byte
+// copies, zero-filled past S) into a ring of stages, so the next tiles
+// land while the current ones are multiplied. In shared memory a tile of ROWS
+// rows of HD bf16 is stored in the 128-byte swizzle the wgmma descriptors
+// name: HD / 64 column panels of ROWS x 128 bytes, chunk c (8 bf16) of row r
+// at chunk c ^ (r % 8) of its panel. That one copy is read both ways: K-major
+// where the product's reduction runs along hd (K and Q in K Q^T, V and dO in
+// V dO^T, Q and K in Q K^T) and MN-major where it runs along the sequence
+// (dO in P^T dO, Q in dS^T Q, K in dS K), so nothing is read twice from HBM
+// or transposed by hand. P^T, dS^T and dS go from the score accumulators
+// into A fragments in registers.
+
+constexpr int kWgThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-       const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
-       const float* __restrict__ di, bf16* __restrict__ dq, int S, int group, float scale,
-       Str sq, Str sk, Str sv, Str sdo, Str sdq) {
-  constexpr int LD = HD + 8, LDT = kBlock + 8;
-  constexpr int KQ = HD / 16, NS = kBlock / 8, KP = kBlock / 16, NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char msm[];
-  bf16* sQ = reinterpret_cast<bf16*>(msm);
-  bf16* sdO = sQ + kBlock * LD;
-  bf16* sK = sdO + kBlock * LD;
-  bf16* sV = sK + kBlock * LD;
-  bf16* sKt = sV + kBlock * LD;
-  int* sSeg = reinterpret_cast<int*>(sKt + HD * LDT);
+// 16 (or 4) bytes global -> shared, asynchronously; zeros when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// This thread's landed copies become visible to wgmma's (async-proxy) reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-  const int b = blockIdx.z, h = blockIdx.y, nh = gridDim.y, q0 = blockIdx.x * kBlock;
-  const int kvh = h / group;
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Ties registers to this point: no read of an accumulator moves above the
+// wait that completes it, and no register an in-flight wgmma reads is reused.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// Accumulator layout of m64nNk16 (f32), thread t of the warpgroup, warp w =
+// t / 32, lane = 4 g + c: d[4 n + e] is row 16 w + g + 8 (e >> 1), column
+// 8 n + 2 c + (e & 1). The A fragment from registers has mma.m16n8k16's
+// layout on each warp's 16 rows, so columns 16 kk .. 16 kk + 15 of an
+// accumulator are the A fragment of k-step kk of the next product.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R], int kk) {
+  a[0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// d = A (64x16, K-major in shared) * B (16x32, K-major in shared), plus d if acc
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d = A (64x16, K-major in shared) * B (16x64, K-major in shared), plus d if acc
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A (64x16, bf16 fragments in registers) * B (16x64, MN-major in shared)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A (64x16, bf16 fragments in registers) * B (16x128, MN-major in shared)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Shared-memory matrix descriptor of wgmma, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// k-step kk (columns 16 kk .. 16 kk + 15) of a swizzled tile of ROWS rows,
+// read K-major: 8-row groups 1024 bytes apart, 32 bytes per k-step inside
+// the 128-byte swizzled row (the hardware applies the XOR to the address).
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return gmma_desc(tile + (kk >> 2) * (ROWS * 128) + (kk & 3) * 32, 16, 1024);
+}
+// k-step kk (rows 16 kk .. 16 kk + 15) of the same tile read MN-major: the
+// 64-column panels ROWS * 128 bytes apart, 8-row groups 1024 bytes apart.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return gmma_desc(tile + kk * 2048, ROWS * 128, 1024);
+}
+
+// Byte offset of 16-byte chunk c (columns 8 c .. 8 c + 7) of row r.
+template <int ROWS>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * (ROWS * 128) + r * 128 + (((c ^ r) & 7) << 4);
+}
+
+// Rows t0 .. t0 + ROWS - 1 of one head into a swizzled tile by cp.async,
+// zeros past S; the caller commits.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src, int ts, int t0,
+                                          int S) {
+  constexpr int CH = HD / 8;
+  static_assert(ROWS * CH % kWgThreads == 0, "whole passes of the warpgroup");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / kWgThreads; ++i) {
+    const int idx = i * kWgThreads + threadIdx.x, r = idx / CH, c = idx % CH, t = t0 + r;
+    const bool ok = t < S;
+    cp_async16(dst + swz<ROWS>(r, c), src + (long long)(ok ? t : 0) * ts + c * 8, ok);
+  }
+}
+
+// The block's dynamic shared memory from a 1024-byte boundary (the swizzle
+// repeats every 8 rows of 128 bytes); every block of a cluster gets the
+// same offsets.
+__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
+// The softmax scale 1 / sqrt(hd), as a constant of the kernel.
+template <int HD>
+__device__ __forceinline__ constexpr float inv_sqrt_hd() {
+  static_assert(HD == 64 || HD == 128, "head dims 64 and 128");
+  return HD == 64 ? 0.125f : 0.08838834764831845f;
+}
+
+// 2^x by the special function unit (2 ulp, denormal results flushed to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Every thread of the warp sees segment id v in all n entries of seg.
+__device__ __forceinline__ bool warp_all_seg(const int* seg, int n, int v) {
+  bool same = true;
+  for (int c = threadIdx.x & 31; c < n; c += 32) same &= seg[c] == v;
+  return __all_sync(0xffffffffu, same);
+}
+
+// Both kernels walk a sequence of steps; step i's streamed tiles sit in
+// stage i % NST of a ring, copied NST - 1 steps ahead. Per step: wait for
+// the step's tiles, start the two score products (S and dP), form P while
+// dP runs, then start each register-A product as soon as its operand exists
+// so that it runs under the next piece of work: dQ (dq) runs on into the
+// next step's score products; dV (dkv) runs while dS is formed, and the
+// step ends when dK is done (carrying dV and dK into the next step costs
+// registers, and with them a block an SM). A step whose tile pair lies
+// wholly below the diagonal, inside S and inside one segment (most of a
+// right-padded batch) skips the per-element mask.
+
+template <int HD>
+struct DkvSmem {
+  static constexpr int BQ = 32, NST = 3;  // query rows per step, ring stages
+  static constexpr int kTile = kBlock * HD * 2, qTile = BQ * HD * 2;
+  static constexpr int stage = 2 * qTile;             // Q, dO
+  static constexpr int rows = 2 * kTile + NST * stage;  // lse, di, seg of each stage
+  static constexpr int ldr = HD + 8;                  // fp32 row of the dK/dV sums
+  static constexpr int loop = rows + NST * 3 * BQ * 4;
+  static constexpr int sums = 2 * kBlock * ldr * 4;
+  static constexpr size_t bytes = (loop > sums ? loop : sums) + 1024;
+};
+
+// dK, dV. Grid (nh / hpb, B, S / 64 key tiles), key tile 0 (the longest
+// walk) launched first; clusters of `group / hpb` blocks along x hold one kv
+// head. A block takes hpb query heads of that kv head and walks, for each,
+// the query tiles of BQ = 32 rows from the diagonal down: that keeps dK, dV,
+// the score tiles and the in-flight dV operand within 168 registers at hd
+// 64, so 3 blocks share an SM (64-row steps did not fit, and ran slower at
+// 2 blocks an SM), and without spills at hd 128. The cluster sums its
+// blocks' dK and dV through distributed shared memory in rank order:
+// deterministic, no atomics.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads)
+dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const int* __restrict__ seg, const bf16* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ di, bf16* __restrict__ dk,
+          bf16* __restrict__ dv, int S, int group, int hpb, Str sq, Str sk, Str sv, Str sdo,
+          Str sdk, Str sdv) {
+  using L = DkvSmem<HD>;
+  constexpr int BQ = L::BQ, NST = L::NST;
+  constexpr float scale = inv_sqrt_hd<HD>(), sl2 = scale * kLog2e;
+  constexpr int RK = HD / 2, RS = BQ / 2, KD = HD / 16, KQ = BQ / 16;
+  extern __shared__ unsigned char dsm[];
+  unsigned char* sm = smem_1k(dsm);
+  float* sRows = reinterpret_cast<float*>(sm + L::rows);
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int nh = gridDim.x * hpb, h0 = blockIdx.x * hpb, kvh = h0 / group;
+  const int b = blockIdx.y, k0 = blockIdx.z * kBlock;
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, c2 = (tid & 3) * 2;
+  const int* segb = seg + (long long)b * S;
+  const int nq = (S - k0 + BQ - 1) / BQ, items = hpb * nq;
+
+  // item it = (query head h0 + it / nq, query tile it % nq) into stage it % NST
+  auto load_item = [&](int it) {
+    if (it >= items) return;
+    const int h = h0 + it / nq, q0 = k0 + (it % nq) * BQ;
+    unsigned char* sQ = sm + 2 * L::kTile + (it % NST) * L::stage;
+    load_tile<HD, BQ>(sQ, q + (long long)b * sq.b + (long long)h * sq.h, sq.t, q0, S);
+    load_tile<HD, BQ>(sQ + L::qTile, dout + (long long)b * sdo.b + (long long)h * sdo.h, sdo.t,
+                      q0, S);
+    const long long row = ((long long)b * nh + h) * S;
+    float* r = sRows + (it % NST) * 3 * BQ;
+    for (int i = tid; i < 3 * BQ; i += kWgThreads) {
+      const int a = i / BQ, t = q0 + i % BQ, tt = t < S ? t : 0;
+      const void* src = a == 0 ? (const void*)(lse + row + tt)
+                        : a == 1 ? (const void*)(di + row + tt)
+                                 : (const void*)(segb + tt);
+      cp_async4(r + i, src, t < S);
+    }
+  };
+  load_tile<HD, kBlock>(sm, k + (long long)b * sk.b + (long long)kvh * sk.h, sk.t, k0, S);
+  load_tile<HD, kBlock>(sm + L::kTile, v + (long long)b * sv.b + (long long)kvh * sv.h, sv.t, k0,
+                        S);
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) {  // one commit group per item
+    load_item(i);
+    cp_async_commit();
+  }
+
+  const int r0 = warp * 16 + g, tj = k0 + r0;  // this thread's key rows: tj and tj + 8
+  const int sg[2] = {tj < S ? segb[tj] : 0, tj + 8 < S ? segb[tj + 8] : 0};
+  const int seg0 = segb[k0];  // the key tile's segment, when it has one
+  const bool kuni = __syncthreads_and(k0 + kBlock <= S && sg[0] == seg0 && sg[1] == seg0);
+  const uint32_t aK = smem_u32(sm), aV = aK + L::kTile;
+  float accK[RK], accV[RK], st[RS], dpt[RS];
+#pragma unroll
+  for (int i = 0; i < RK; ++i) accK[i] = accV[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < RS; ++i) st[i] = dpt[i] = 0.0f;
+
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<NST - 2>();
+    fence_async_shared();
+    __syncthreads();  // item it landed; every warp is done with item it - 1
+    load_item(it + NST - 1);  // into the stage item it - 1 left
+    cp_async_commit();
+    const int q0 = k0 + (it % nq) * BQ;
+    const uint32_t aQ = aK + 2 * L::kTile + (it % NST) * L::stage, adO = aQ + L::qTile;
+    const float* rl = sRows + (it % NST) * 3 * BQ;
+    const float* rd = rl + BQ;
+    const int* rs = reinterpret_cast<const int*>(rl + 2 * BQ);
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x BQ queries
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) wgmma_ss(st, desc_k<kBlock>(aK, kk), desc_k<BQ>(aQ, kk), kk);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) wgmma_ss(dpt, desc_k<kBlock>(aV, kk), desc_k<BQ>(adO, kk), kk);
+    wg_commit();
+
+    const bool fast = kuni && q0 >= k0 + kBlock && q0 + BQ <= S && warp_all_seg(rs, BQ, seg0);
+    wg_wait<1>();
+    reg_fence(st);
+    if (fast) {  // P^T, while dP^T is still in flight
+#pragma unroll
+      for (int j = 0; j < RS; ++j) {
+        const int col = (j >> 2) * 8 + c2 + (j & 1);
+        st[j] = ex2(fmaf(st[j], sl2, -rl[col] * kLog2e));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < RS; ++j) {
+        const int i = (j >> 1) & 1, col = (j >> 2) * 8 + c2 + (j & 1), qi = q0 + col;
+        const bool ok = qi < S && tj + 8 * i <= qi && rs[col] == sg[i];
+        st[j] = ok ? ex2(fmaf(st[j], sl2, -rl[col] * kLog2e)) : 0.0f;
+      }
+    }
+    // dV += P^T dO, in flight while dS^T is formed
+    uint32_t pa[KQ][4], da[KQ][4];
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) acc_to_a(pa[kk], st, kk);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) wgmma_rs(accV, pa[kk], desc_mn<BQ>(adO, kk));
+    wg_commit();
+    wg_wait<1>();  // dP^T is done (dV may still run)
+    reg_fence(dpt);
+#pragma unroll
+    for (int j = 0; j < RS; ++j) dpt[j] = st[j] * (dpt[j] - rd[(j >> 2) * 8 + c2 + (j & 1)]);
+
+    // dK += dS^T Q (its 1/sqrt(hd) is applied at the end)
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) acc_to_a(da[kk], dpt, kk);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) wgmma_rs(accK, da[kk], desc_mn<BQ>(aQ, kk));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(accV);
+    reg_fence(pa);
+    reg_fence(accK);
+    reg_fence(da);
+  }
+  __syncthreads();  // every warp's products are done before the sums overwrite the tiles
+
+  // The cluster's sum: each block parks its fp32 dK, dV in its own shared
+  // memory; block `rank` then adds rows of all blocks in rank order and
+  // writes them in bf16.
+  float* sums = reinterpret_cast<float*>(sm);
+#pragma unroll
+  for (int j = 0; j < RK; j += 2) {
+    const int row = r0 + 8 * ((j >> 1) & 1), col = (j >> 2) * 8 + c2;
+    *reinterpret_cast<float2*>(sums + row * L::ldr + col) = make_float2(accK[j], accK[j + 1]);
+    *reinterpret_cast<float2*>(sums + (kBlock + row) * L::ldr + col) =
+        make_float2(accV[j], accV[j + 1]);
+  }
+  cluster.sync();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  constexpr int C4 = HD / 4, PER = kBlock * C4;
+  bf16* dkb = dk + (long long)b * sdk.b + (long long)kvh * sdk.h;
+  bf16* dvb = dv + (long long)b * sdv.b + (long long)kvh * sdv.h;
+  for (int idx = rank * kWgThreads + tid; idx < 2 * PER; idx += C * kWgThreads) {
+    const int which = idx / PER, row = (idx % PER) / C4, c = (idx % C4) * 4, t = k0 + row;
+    const int off = (which * kBlock + row) * L::ldr + c;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int r = 0; r < C; ++r) {
+      const float4 x = *reinterpret_cast<const float4*>(cluster.map_shared_rank(sums, r) + off);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    if (t < S) {
+      const float f = which ? 1.0f : scale;
+      bf16* dst = which ? dvb + (long long)t * sdv.t + c : dkb + (long long)t * sdk.t + c;
+      *reinterpret_cast<uint2*>(dst) =
+          make_uint2(pack_bf16(acc.x * f, acc.y * f), pack_bf16(acc.z * f, acc.w * f));
+    }
+  }
+  cluster.sync();  // no block leaves while a peer still reads its sums
+}
+
+template <int HD, int NST>
+struct DqSmem {
+  static constexpr int tile = kBlock * HD * 2;
+  static constexpr int stage = 2 * tile;               // K, V
+  static constexpr int segs = 2 * tile + NST * stage;  // Q, dO, then the ring
+  static constexpr size_t bytes = segs + NST * kBlock * 4 + 1024;
+};
+
+// dQ. Grid (nh, B, S / 64 query tiles), the last query tile (the longest
+// walk) launched first. A block holds its 64 query rows of Q and dO and walks
+// the key tiles up to the diagonal, K and V (and the keys' seg) through the
+// ring.
+template <int HD, int NST>
+__global__ void __launch_bounds__(kWgThreads)
+dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+         const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
+         const float* __restrict__ di, bf16* __restrict__ dq, int S, int group, Str sq, Str sk,
+         Str sv, Str sdo, Str sdq) {
+  using L = DqSmem<HD, NST>;
+  constexpr float scale = inv_sqrt_hd<HD>(), sl2 = scale * kLog2e;
+  constexpr int RQ = HD / 2, RS = kBlock / 2, KD = HD / 16, KK = kBlock / 16;
+  extern __shared__ unsigned char dsm[];
+  unsigned char* sm = smem_1k(dsm);
+  int* sSeg = reinterpret_cast<int*>(sm + L::segs);
+
+  const int h = blockIdx.x, nh = gridDim.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z, q0 = qt * kBlock, kvh = h / group;
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, c2 = (tid & 3) * 2;
   const bf16* kb = k + (long long)b * sk.b + (long long)kvh * sk.h;
   const bf16* vb = v + (long long)b * sv.b + (long long)kvh * sv.h;
-  bf16* dqb = dq + (long long)b * sdq.b + (long long)h * sdq.h;
   const int* segb = seg + (long long)b * S;
-  const float* lb = lse + ((long long)b * nh + h) * S;
-  const float* db = di + ((long long)b * nh + h) * S;
 
-  mma_load<HD, kBlock>(sQ, LD, q + (long long)b * sq.b + (long long)h * sq.h, sq.t, q0, S);
-  mma_load<HD, kBlock>(sdO, LD, dout + (long long)b * sdo.b + (long long)h * sdo.h, sdo.t, q0,
-                       S);
-  const int r0 = warp * 16 + g;
+  auto load_kv = [&](int kt) {  // key tile kt into stage kt % NST
+    if (kt > qt) return;
+    unsigned char* sK = sm + 2 * L::tile + (kt % NST) * L::stage;
+    load_tile<HD, kBlock>(sK, kb, sk.t, kt * kBlock, S);
+    load_tile<HD, kBlock>(sK + L::tile, vb, sv.t, kt * kBlock, S);
+    if (tid < kBlock) {
+      const int t = kt * kBlock + tid;
+      cp_async4(sSeg + (kt % NST) * kBlock + tid, segb + (t < S ? t : 0), t < S);
+    }
+  };
+  load_tile<HD, kBlock>(sm, q + (long long)b * sq.b + (long long)h * sq.h, sq.t, q0, S);
+  load_tile<HD, kBlock>(sm + L::tile, dout + (long long)b * sdo.b + (long long)h * sdo.h, sdo.t,
+                        q0, S);
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) {  // one commit group per key tile
+    load_kv(i);
+    cp_async_commit();
+  }
+
+  const int r0 = warp * 16 + g;  // this thread's query rows: r0 and r0 + 8
   const int tr[2] = {q0 + r0, q0 + r0 + 8};
   int sg[2];
-  float lr[2], dr[2];
+  float l2[2], dr[2];
+  const float* lb = lse + ((long long)b * nh + h) * S;
+  const float* db = di + ((long long)b * nh + h) * S;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool in = tr[i] < S;
     sg[i] = in ? segb[tr[i]] : 0;
-    lr[i] = in ? lb[tr[i]] : 0.0f;
+    l2[i] = in ? lb[tr[i]] * kLog2e : 0.0f;
     dr[i] = in ? db[tr[i]] : 0.0f;
   }
-  float acc[NO][4];
+  const int seg0 = segb[q0];  // the query tile's segment, when it has one
+  const bool quni = __syncthreads_and(q0 + kBlock <= S && sg[0] == seg0 && sg[1] == seg0);
+  const uint32_t aQ = smem_u32(sm), adO = aQ + L::tile;
+  float acc[RQ], s[RS], dp[RS];
+  uint32_t da[KK][4];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int i = 0; i < RQ; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < RS; ++i) s[i] = dp[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < KK; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) da[i][e] = 0u;
 
-  const int kend = min(q0 + kBlock, S);
-  for (int k0 = 0; k0 < kend; k0 += kBlock) {
-    mma_load<HD, kBlock>(sK, LD, kb, sk.t, k0, S);
-    mma_load<HD, kBlock>(sV, LD, vb, sv.t, k0, S);
-    mma_load_t<HD, kBlock>(sKt, LDT, kb, sk.t, k0, S);
-    load_seg(sSeg, segb, k0, kBlock, S);
-    __syncthreads();
+  for (int kt = 0; kt <= qt; ++kt) {  // key tiles up to the diagonal
+    cp_async_wait<NST - 2>();
+    fence_async_shared();
+    __syncthreads();  // key tile kt has landed for every thread
+    const int k0 = kt * kBlock;
+    const uint32_t aK = aQ + 2 * L::tile + (kt % NST) * L::stage, aV = aK + L::tile;
+    const int* ks = sSeg + (kt % NST) * kBlock;
 
-    float s[NS][4], dp[NS][4];
+    // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
+    wg_fence();
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int kk = 0; kk < KD; ++kk) wgmma_ss(s, desc_k<kBlock>(aQ, kk), desc_k<kBlock>(aK, kk), kk);
+    wg_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    for (int kk = 0; kk < KD; ++kk)
+      wgmma_ss(dp, desc_k<kBlock>(adO, kk), desc_k<kBlock>(aV, kk), kk);
+    wg_commit();
+    wg_wait<2>();  // the previous key tile's dQ product is done
+    reg_fence(acc);
+    reg_fence(da);
+    __syncthreads();  // ... in every warp: its stage takes key tile kt + NST - 1
+    load_kv(kt + NST - 1);
+    cp_async_commit();
+
+    const bool fast = quni && kt < qt && warp_all_seg(ks, kBlock, seg0);
+    wg_wait<1>();
+    reg_fence(s);
+    if (fast) {  // P, while dP is still in flight
 #pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
-      uint32_t a[4], ad[4];
-      load_a(a, sQ + r0 * LD + kk * 16 + c2, LD);
-      load_a(ad, sdO + r0 * LD + kk * 16 + c2, LD);
+      for (int j = 0; j < RS; ++j) s[j] = ex2(fmaf(s[j], sl2, -l2[(j >> 1) & 1]));
+    } else {
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const bf16* pk = sK + (n * 8 + g) * LD + kk * 16 + c2;
-        const bf16* pv = sV + (n * 8 + g) * LD + kk * 16 + c2;
-        mma_16816(s[n], a, ld32(pk), ld32(pk + 8));
-        mma_16816(dp[n], ad, ld32(pv), ld32(pv + 8));
+      for (int j = 0; j < RS; ++j) {
+        const int i = (j >> 1) & 1, col = (j >> 2) * 8 + c2 + (j & 1);
+        const bool ok = tr[i] < S && k0 + col <= tr[i] && ks[col] == sg[i];
+        s[j] = ok ? ex2(fmaf(s[j], sl2, -l2[i])) : 0.0f;
       }
     }
+    wg_wait<0>();
+    reg_fence(dp);
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int j = 0; j < RS; ++j) dp[j] = s[j] * (dp[j] - dr[(j >> 1) & 1]);  // dS
+
+    // dQ += dS K (the 1/sqrt(hd) is applied at the end)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, col = n * 8 + c2 + (e & 1), j = k0 + col;
-        const bool ok = tr[i] < S && j <= tr[i] && sSeg[col] == sg[i];
-        const float p = ok ? expf(s[n][e] * scale - lr[i]) : 0.0f;
-        s[n][e] = p * (dp[n][e] - dr[i]);  // dS
-      }
+    for (int kk = 0; kk < KK; ++kk) acc_to_a(da[kk], dp, kk);
+    wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < KP; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const bf16* p = sKt + (n * 8 + g) * LDT + kk * 16 + c2;
-        mma_16816(acc[n], pa, ld32(p), ld32(p + 8));
-      }
-    }
-    __syncthreads();
+    for (int kk = 0; kk < KK; ++kk) wgmma_rs(acc, da[kk], desc_mn<kBlock>(aK, kk));
+    wg_commit();
   }
+  wg_wait<0>();
+  reg_fence(acc);
+  reg_fence(da);
 
+  bf16* dqb = dq + (long long)b * sdq.b + (long long)h * sdq.h;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + c2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (tr[i] < S)
-        *reinterpret_cast<uint32_t*>(dqb + (long long)tr[i] * sdq.t + c) =
-            pack_bf16(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
-  }
-}
-
-template <int HD, int BQ>
-constexpr size_t dkv_mma_smem() {
-  return sizeof(bf16) * (2 * size_t(kBlock) * (HD + 8) + 2 * size_t(BQ) * (HD + 8) +
-                         2 * size_t(HD) * (BQ + 8)) +
-         (2 * sizeof(float) + sizeof(int)) * BQ;
-}
-
-// BQ: query rows per inner tile (32 at hd 128 keeps dK, dV and the two
-// score tiles within the register file).
-template <int HD, int BQ>
-__global__ void __launch_bounds__(kMmaThreads)
-dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-        const int* __restrict__ seg, const bf16* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ di, bf16* __restrict__ dk,
-        bf16* __restrict__ dv, int S, int group, float scale, Str sq, Str sk, Str sv, Str sdo,
-        Str sdk, Str sdv) {
-  constexpr int LD = HD + 8, LDT = BQ + 8;
-  constexpr int KQ = HD / 16, NS = BQ / 8, KP = BQ / 16, NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char msm[];
-  bf16* sK = reinterpret_cast<bf16*>(msm);
-  bf16* sV = sK + kBlock * LD;
-  bf16* sQ = sV + kBlock * LD;
-  bf16* sdO = sQ + BQ * LD;
-  bf16* sQt = sdO + BQ * LD;
-  bf16* sdOt = sQt + HD * LDT;
-  float* sLse = reinterpret_cast<float*>(sdOt + HD * LDT);
-  float* sDi = sLse + BQ;
-  int* sSeg = reinterpret_cast<int*>(sDi + BQ);
-
-  const int b = blockIdx.z, kvh = blockIdx.y, nh = gridDim.y * group, k0 = blockIdx.x * kBlock;
-  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, c2 = (tid & 3) * 2;
-  const int* segb = seg + (long long)b * S;
-
-  mma_load<HD, kBlock>(sK, LD, k + (long long)b * sk.b + (long long)kvh * sk.h, sk.t, k0, S);
-  mma_load<HD, kBlock>(sV, LD, v + (long long)b * sv.b + (long long)kvh * sv.h, sv.t, k0, S);
-  const int r0 = warp * 16 + g;  // this thread's key rows: r0 and r0 + 8
-  const int tj[2] = {k0 + r0, k0 + r0 + 8};
-  const int sg[2] = {tj[0] < S ? segb[tj[0]] : 0, tj[1] < S ? segb[tj[1]] : 0};
-  float accK[NO][4], accV[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) accK[n][e] = accV[n][e] = 0.0f;
-
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kvh * group + hh;
-    const bf16* qb = q + (long long)b * sq.b + (long long)h * sq.h;
-    const bf16* ob = dout + (long long)b * sdo.b + (long long)h * sdo.h;
-    const float* lb = lse + ((long long)b * nh + h) * S;
-    const float* db = di + ((long long)b * nh + h) * S;
-    for (int q0 = k0; q0 < S; q0 += BQ) {  // query tiles from the diagonal down
-      __syncthreads();  // the previous tile's readers are done
-      mma_load<HD, BQ>(sQ, LD, qb, sq.t, q0, S);
-      mma_load<HD, BQ>(sdO, LD, ob, sdo.t, q0, S);
-      mma_load_t<HD, BQ>(sQt, LDT, qb, sq.t, q0, S);
-      mma_load_t<HD, BQ>(sdOt, LDT, ob, sdo.t, q0, S);
-      for (int r = tid; r < BQ; r += kMmaThreads) {
-        const int i = q0 + r;
-        sLse[r] = i < S ? lb[i] : 0.0f;
-        sDi[r] = i < S ? db[i] : 0.0f;
-        sSeg[r] = i < S ? segb[i] : 0;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T, 16 key rows x BQ queries per warp
-      float st[NS][4], dpt[NS][4];
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < KQ; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, sK + r0 * LD + kk * 16 + c2, LD);
-        load_a(av, sV + r0 * LD + kk * 16 + c2, LD);
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          const bf16* pq = sQ + (n * 8 + g) * LD + kk * 16 + c2;
-          const bf16* pd = sdO + (n * 8 + g) * LD + kk * 16 + c2;
-          mma_16816(st[n], ak, ld32(pq), ld32(pq + 8));
-          mma_16816(dpt[n], av, ld32(pd), ld32(pd + 8));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, col = n * 8 + c2 + (e & 1), qi = q0 + col;
-          const bool ok = qi < S && tj[i] <= qi && sSeg[col] == sg[i];
-          const float p = ok ? expf(st[n][e] * scale - sLse[col]) : 0.0f;
-          dpt[n][e] = p * (dpt[n][e] - sDi[col]);  // dS^T
-          st[n][e] = p;                            // P^T
-        }
-      // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-      for (int kk = 0; kk < KP; ++kk) {
-        uint32_t pa[4], da[4];
-        c_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-        c_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          const bf16* po = sdOt + (n * 8 + g) * LDT + kk * 16 + c2;
-          const bf16* pq = sQt + (n * 8 + g) * LDT + kk * 16 + c2;
-          mma_16816(accV[n], pa, ld32(po), ld32(po + 8));
-          mma_16816(accK[n], da, ld32(pq), ld32(pq + 8));
-        }
-      }
-    }
-  }
-
-  bf16* dkb = dk + (long long)b * sdk.b + (long long)kvh * sdk.h;
-  bf16* dvb = dv + (long long)b * sdv.b + (long long)kvh * sdv.h;
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + c2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (tj[i] < S) {
-        *reinterpret_cast<uint32_t*>(dkb + (long long)tj[i] * sdk.t + c) =
-            pack_bf16(accK[n][2 * i] * scale, accK[n][2 * i + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dvb + (long long)tj[i] * sdv.t + c) =
-            pack_bf16(accV[n][2 * i], accV[n][2 * i + 1]);
-      }
+  for (int j = 0; j < RQ; j += 2) {
+    const int t = tr[(j >> 1) & 1], c = (j >> 2) * 8 + c2;
+    if (t < S)
+      *reinterpret_cast<uint32_t*>(dqb + (long long)t * sdq.t + c) =
+          pack_bf16(acc[j] * scale, acc[j + 1] * scale);
   }
 }
 
@@ -952,44 +1308,62 @@ template <int HD>
 cudaError_t dq_hd(bool bf, const void* q, const void* k, const void* v, const int* seg,
                   const void* dout, const float* lse, const float* di, void* dq, int B, int S,
                   int nh, int group, const int* s, cudaStream_t st) {
-  const dim3 grid((S + kBlock - 1) / kBlock, nh, B);
+  const int tiles = (S + kBlock - 1) / kBlock;
   const float scale = 1.0f / sqrtf((float)HD);
   cudaError_t err;
   if (bf) {
-    constexpr size_t smem = dq_mma_smem<HD>();
-    if ((err = prepare(dq_mma<HD>, smem)) != cudaSuccess) return err;
-    dq_mma<HD><<<grid, kMmaThreads, smem, st>>>(
+    // a ring of 3 at hd 64; 2 at hd 128, where 3 would leave one block an SM
+    constexpr int NST = HD == 128 ? 2 : 3;
+    constexpr size_t smem = DqSmem<HD, NST>::bytes;
+    if ((err = prepare(dq_wgmma<HD, NST>, smem)) != cudaSuccess) return err;
+    dq_wgmma<HD, NST><<<dim3(nh, B, tiles), kWgThreads, smem, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, seg, (const bf16*)dout, lse, di,
-        (bf16*)dq, S, group, scale, str(s, 0), str(s, 1), str(s, 2), str(s, 3), str(s, 4));
+        (bf16*)dq, S, group, str(s, 0), str(s, 1), str(s, 2), str(s, 3), str(s, 4));
   } else {
     constexpr size_t smem = dq_fma_smem<HD>();
     if ((err = prepare(dq_fma<HD>, smem)) != cudaSuccess) return err;
-    dq_fma<HD><<<grid, kFmaThreads, smem, st>>>(
+    dq_fma<HD><<<dim3(tiles, nh, B), kFmaThreads, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v, seg, (const float*)dout, lse, di,
         (float*)dq, S, group, scale, str(s, 0), str(s, 1), str(s, 2), str(s, 3), str(s, 4));
   }
   return cudaGetLastError();
 }
 
+// cluster: blocks per thread-block cluster of the bf16 kernel, a divisor of
+// the group of at most 8 (the host's plan, ops/flash_attention_causal.py).
 template <int HD>
 cudaError_t dkv_hd(bool bf, const void* q, const void* k, const void* v, const int* seg,
                    const void* dout, const float* lse, const float* di, void* dk, void* dv,
-                   int B, int S, int nkv, int group, const int* s, cudaStream_t st) {
-  const dim3 grid((S + kBlock - 1) / kBlock, nkv, B);
+                   int B, int S, int nkv, int group, int cluster, const int* s, cudaStream_t st) {
+  const int tiles = (S + kBlock - 1) / kBlock;
   const float scale = 1.0f / sqrtf((float)HD);
   cudaError_t err;
   if (bf) {
-    constexpr int BQ = HD == 128 ? 32 : 64;
-    constexpr size_t smem = dkv_mma_smem<HD, BQ>();
-    if ((err = prepare(dkv_mma<HD, BQ>, smem)) != cudaSuccess) return err;
-    dkv_mma<HD, BQ><<<grid, kMmaThreads, smem, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, seg, (const bf16*)dout, lse, di,
-        (bf16*)dk, (bf16*)dv, S, group, scale, str(s, 0), str(s, 1), str(s, 2), str(s, 3),
-        str(s, 4), str(s, 5));
+    if (cluster < 1 || cluster > 8 || group % cluster) return cudaErrorInvalidValue;
+    constexpr size_t smem = DkvSmem<HD>::bytes;
+    if ((err = prepare(dkv_wgmma<HD>, smem)) != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nkv * cluster, B, tiles);
+    cfg.blockDim = dim3(kWgThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaLaunchKernelEx(&cfg, dkv_wgmma<HD>, (const bf16*)q, (const bf16*)k,
+                                  (const bf16*)v, seg, (const bf16*)dout, lse, di, (bf16*)dk,
+                                  (bf16*)dv, S, group, group / cluster, str(s, 0),
+                                  str(s, 1), str(s, 2), str(s, 3), str(s, 4), str(s, 5))) !=
+        cudaSuccess)
+      return err;
   } else {
     constexpr size_t smem = dkv_fma_smem<HD>();
     if ((err = prepare(dkv_fma<HD>, smem)) != cudaSuccess) return err;
-    dkv_fma<HD><<<grid, kFmaThreads, smem, st>>>(
+    dkv_fma<HD><<<dim3(tiles, nkv, B), kFmaThreads, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v, seg, (const float*)dout, lse, di,
         (float*)dk, (float*)dv, S, group, scale, str(s, 0), str(s, 1), str(s, 2), str(s, 3),
         str(s, 4), str(s, 5));
@@ -1056,13 +1430,15 @@ extern "C" int mt_flash_attention_causal_bwd_prep(const void* o, const void* dou
 }
 
 // -> dk, dv (B,S,nkv,hd), each the sum over its group's query heads.
-// strides: q, k, v, dout, dk, dv.
+// strides: q, k, v, dout, dk, dv; dk and dv rows start on 8-byte boundaries.
+// cluster: blocks per cluster of the bf16 kernel (a divisor of nh / nkv, at
+// most 8; each block takes nh / nkv / cluster query heads); fp32 ignores it.
 extern "C" int mt_flash_attention_causal_bwd_dkv(const void* q, const void* k, const void* v,
                                                  const int* seg, const void* dout,
                                                  const float* lse, const float* di, void* dk,
                                                  void* dv, int B, int S, int nh, int nkv, int hd,
-                                                 int is_bf16, int device, const int* strides,
-                                                 void* stream) {
+                                                 int cluster, int is_bf16, int device,
+                                                 const int* strides, void* stream) {
   if (!shapes_ok(B, S, nh, nkv)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -1070,10 +1446,10 @@ extern "C" int mt_flash_attention_causal_bwd_dkv(const void* q, const void* k, c
   switch (hd) {
     case 64:
       return (int)dkv_hd<64>(is_bf16, q, k, v, seg, dout, lse, di, dk, dv, B, S, nkv, nh / nkv,
-                             strides, st);
+                             cluster, strides, st);
     case 128:
       return (int)dkv_hd<128>(is_bf16, q, k, v, seg, dout, lse, di, dk, dv, B, S, nkv, nh / nkv,
-                              strides, st);
+                              cluster, strides, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

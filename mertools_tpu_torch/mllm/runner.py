@@ -31,7 +31,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from ..core.device import upload
+from ..core.device import resolve_device, upload
 from .affectgpt import AffectGPT, config_from_dict, is_trainable, set_trainable
 
 
@@ -238,9 +238,12 @@ def save_model(path: str, model: AffectGPT) -> str:
     return path
 
 
-def restore_model(path: str, device="cpu") -> AffectGPT:
+def restore_model(path: str, device="cuda") -> AffectGPT:
     """The :class:`AffectGPT` of a :func:`save_model` directory, on
-    ``device``."""
+    ``device``: the card unless the caller asks for ``"cpu"``. The weights
+    are fp32, so the card runs them without TF32; a host without a card
+    raises rather than falling back to the CPU."""
+    device = resolve_device(device, fp32=True)
     path = os.path.abspath(path)
     with open(os.path.join(path, "config.json")) as f:
         cfg = config_from_dict(json.load(f))

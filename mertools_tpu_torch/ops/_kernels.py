@@ -56,15 +56,18 @@ def build() -> tuple[Path, float, str]:
     """Compile the sources if no library with their hash exists: one nvcc
     per ``.cu`` file, all started together, then one link.
 
-    Returns (library path, build seconds, compiler output); the seconds are
-    0.0 and the output empty when an existing library was reused."""
+    Returns (library path, build seconds, compiler output). The output (with
+    ``ptxas -v``'s registers and spills) is kept beside the library as
+    ``<name>.log``; an existing library is reused, in 0.0 s, with that log,
+    and one without its log is built again."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libmertools_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out, 0.0, ""
+    kept = out.with_suffix(".log")
+    if out.exists() and kept.exists():
+        return out, 0.0, kept.read_text()
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     objs = {s: BUILD_DIR / f"{s.stem}.{tag}.o"
@@ -77,6 +80,9 @@ def build() -> tuple[Path, float, str]:
                   *(str(o) for o in objs.values())]])
     for o in objs.values():
         o.unlink()
+    tmp_log = kept.with_name(f"{kept.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, kept)  # before the library, so a reused one has its log
     os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
     return out, time.perf_counter() - t0, log
 
@@ -97,7 +103,7 @@ SIGNATURES = {
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]),
     "mt_flash_attention_causal_bwd_dkv": (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]),
     "mt_flash_attention_causal_bwd_dq": (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7

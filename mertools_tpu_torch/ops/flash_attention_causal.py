@@ -243,6 +243,16 @@ def _check_bwd(q, dout, lse, di):
                              f" got {t.dtype} {tuple(t.shape)}")
 
 
+def dkv_cluster(nh: int, nkv: int) -> int:
+    """Blocks per thread-block cluster of the bf16 dK/dV kernel: the largest
+    divisor of the GQA group ``nh // nkv`` that is at most 8 (the portable
+    cluster size). The cluster's blocks share one kv head, each takes
+    ``group // cluster`` of its query heads, and the cluster adds their dK
+    and dV in rank order."""
+    group = nh // nkv
+    return max(c for c in range(1, 9) if group % c == 0)
+
+
 def flash_attention_causal_bwd_dkv(q, k, v, seg, dout, lse, di):
     """(dK, dV), (B, S, nkv, hd) in k's dtype. CPU tensors take
     :func:`bwd_dkv_ref`."""
@@ -259,7 +269,7 @@ def flash_attention_causal_bwd_dkv(q, k, v, seg, dout, lse, di):
     _raise(library().mt_flash_attention_causal_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, S, nh, k.shape[2], hd,
+        dv.data_ptr(), B, S, nh, k.shape[2], hd, dkv_cluster(nh, k.shape[2]),
         int(q.dtype == torch.bfloat16), dev,
         _strides(q, k, v, dout, dk, dv), stream),
         "flash_attention_causal_bwd_dkv")

@@ -1,0 +1,98 @@
+"""chip_smoke.py on a host without a card: phase 1's no-spill check on the
+`ptxas -v` output, which the kernel build keeps for a reused library, and
+the exit without a result."""
+
+import os
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import chip_smoke  # noqa: E402
+from mertools_tpu_torch.ops import _kernels  # noqa: E402
+
+DKV = "_ZN58_GLOBAL__N__333af1e6_25_flash_attention_causal_cu_1a8e2b8c9dkv_wgmmaILi{}EEEvPK13__nv_bfloat16S3_S3_PKiS3_PKfS7_PS1_S8_iiiNS_3StrES9_S9_S9_S9_S9_"
+DQ = "_ZN58_GLOBAL__N__333af1e6_25_flash_attention_causal_cu_1a8e2b8c8dq_wgmmaILi{}ELi{}EEEvPK13__nv_bfloat16S3_S3_PKiS3_PKfS7_PS1_iiNS_3StrES9_S9_S9_S9_"
+
+
+def _entry(sym, regs, spill=0):
+    return (f"ptxas info    : Compiling entry function '{sym}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {sym}\n"
+            f"    0 bytes stack frame, {spill} bytes spill stores, "
+            f"{spill + 4 if spill else 0} bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 1 barriers\n")
+
+
+MEL = ("ptxas info    : Compiling entry function 'mel_power_fwd' for 'sm_90a'\n"
+       "ptxas info    : Used 210 registers, 384 bytes cmem[0]\n")
+CLEAN = (_entry(DKV.format(64), 130) + _entry(DKV.format(128), 216)
+         + _entry(DQ.format(64, 3), 168) + _entry(DQ.format(128, 2), 254) + MEL)
+
+
+def test_ptxas_usage_reads_registers_and_spills_per_kernel():
+    log = _entry(DKV.format(64), 130) + _entry(DQ.format(128, 2), 168, 16) + MEL
+    assert chip_smoke.ptxas_usage(log) == {
+        "dkv_wgmma<64>": (130, 0, 0),
+        "dq_wgmma<128,2>": (168, 16, 20),
+        "mel_power_fwd": (210, 0, 0),
+    }
+    assert chip_smoke.ptxas_usage("") == {}
+
+
+@pytest.mark.parametrize("log,match", [
+    (CLEAN.replace(_entry(DQ.format(128, 2), 254),
+                   _entry(DQ.format(128, 2), 254, 16)), "dq_wgmma"),
+    (CLEAN.replace(_entry(DKV.format(128), 216), ""), "dkv_wgmma"),
+    ("", "dkv_wgmma"),
+])
+def test_phase1_spill_check_fails_on_a_spill_or_a_missing_kernel(log, match):
+    assert len(chip_smoke.check_no_spills(CLEAN)) == 5
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.check_no_spills(log)
+
+
+def test_a_reused_library_gives_phase1_its_build_log(tmp_path, monkeypatch):
+    """A second run in the same checkout (or one after the card tests built
+    the library) reuses it and still passes phase 1's check; a library
+    without its log is built again."""
+    runs = []
+
+    def fake_run(cmds):
+        runs.append(cmds)
+        for c in cmds:
+            Path(c[c.index("-o") + 1]).write_bytes(b"")
+        return CLEAN if "-c" in cmds[0] else ""
+
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_kernels, "_run", fake_run)
+    path, secs, log = _kernels.build()
+    assert path.exists() and secs > 0 and log == CLEAN and len(runs) == 2
+    assert _kernels.build() == (path, 0.0, CLEAN) and len(runs) == 2
+    chip_smoke.check_no_spills(_kernels.build()[2])
+
+    path.with_suffix(".log").unlink()
+    assert _kernels.build()[2] == CLEAN and len(runs) == 4
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        [path.name, path.with_suffix(".log").name])
+
+
+def test_exits_without_a_result_on_a_host_without_a_card(capsys, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main([]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
+@pytest.mark.parametrize("argv", [["--fast"], ["--fast", "1"]])
+def test_rejects_unknown_arguments_on_a_card(argv, capsys, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert chip_smoke.main(argv) == 2
+    assert "unknown arguments" in capsys.readouterr().err

@@ -12,7 +12,7 @@ import torch
 
 from mertools_tpu_torch.cli.train_mllm import build_model, main, use_b3
 from mertools_tpu_torch.mllm.runner import (epoch_checkpoints, overlay_trainable,
-                                            restore_model)
+                                            restore_model, save_model)
 
 torch.set_num_threads(1)
 
@@ -71,7 +71,7 @@ def test_train_mllm_smoke(tmp_path):
     assert (out / "checkpoint_0" / "trainable.pt").exists()
     assert (out / "checkpoint_0" / "config.json").exists()
     assert (out / "log.txt").exists()
-    model = restore_model(str(out / "model"))
+    model = restore_model(str(out / "model"), device="cpu")
     assert model.cfg.llm.vocab_size == 96
     # the saved trainable state overlays a fresh model exactly
     fresh, _ = build_model({"llm_checkpoint": "tiny", "vocab_size": 96,
@@ -82,6 +82,21 @@ def test_train_mllm_smoke(tmp_path):
     for (n, p), q in zip(fresh.named_parameters(), model.parameters()):
         if n.startswith("video_qformer") or n.endswith("lora_B"):
             assert torch.equal(p, q), n
+
+
+def test_restore_model_defaults_to_the_card(tmp_path, monkeypatch):
+    """restore_model loads onto the card unless asked for the CPU; on a host
+    without a card the default raises instead of falling back."""
+    model, _ = build_model({"llm_checkpoint": "tiny", "vocab_size": 96,
+                            "lora_r": 2, "video_dim": 12, "audio_dim": 10,
+                            "fusion": "mean"})
+    path = save_model(str(tmp_path / "model"), model)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restore_model(path)
+    got = restore_model(path, device="cpu")
+    for (n, p), q in zip(model.named_parameters(), got.parameters()):
+        assert torch.equal(p, q), n
 
 
 def test_train_mllm_valid_split_and_resume(tmp_path, capsys):
@@ -114,7 +129,7 @@ def test_train_mllm_best_setup_stream_mode(tmp_path, capsys):
     main([f"--config={cfg}", "--device", "cpu", "--options", "run.max_len=160",
           "run.iters_per_epoch=2"])
     assert "epoch 0:" in capsys.readouterr().out
-    model = restore_model(str(tmp_path / "out" / "model"))
+    model = restore_model(str(tmp_path / "out" / "model"), device="cpu")
     assert model.cfg.face_or_frame == "multiface_audio_face_text"
     assert model.cfg.video_fusion_type == model.cfg.multi_fusion == "attention"
 

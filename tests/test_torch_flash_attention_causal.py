@@ -178,3 +178,17 @@ def test_check_kernel_args_rejects(case, match):
         q = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
     with pytest.raises(ValueError, match=match):
         fc.check_kernel_args(q, k, v, seg)
+
+
+@pytest.mark.parametrize("nh,nkv,want", [
+    (8, 8, 1), (8, 4, 2), (8, 2, 4), (28, 4, 7), (32, 4, 8),  # groups 1-8
+    (32, 2, 8), (11, 1, 1), (18, 1, 6), (48, 4, 6), (64, 2, 8)])  # 16, 11, 18, 12, 32
+def test_dkv_cluster_is_the_largest_group_divisor_up_to_8(nh, nkv, want):
+    """The one value the host plans for the bf16 dK/dV kernel: blocks per
+    cluster, a divisor of the GQA group of at most 8 (the portable cluster
+    size), the largest such; each block then takes group / cluster heads.
+    Tile coverage is the card tests' (every row against the plain version)."""
+    group, cluster = nh // nkv, fc.dkv_cluster(nh, nkv)
+    assert cluster == want
+    assert group % cluster == 0 and cluster <= 8
+    assert all(group % c for c in range(cluster + 1, 9))

@@ -160,12 +160,28 @@ def _rel(a, b):
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
+B3_LENS = (200, 171, 64, 33, 1)   # the last row is all padding after position 0
+# (hd, nh, nkv, lens, S): GQA groups 1, 2, 4, 7 and 8 at hd 64 and 128 (the
+# bf16 dK/dV kernel then runs clusters of as many blocks,
+# ops/flash_attention_causal.dkv_cluster); groups 16 and 11, where a block
+# walks several query heads (clusters of 8 blocks with 2 heads each, and of
+# 1 block with 11); S 97 and 480, not multiples of 64; one long row
+B3_CASES = [
+    (64, 8, 2, B3_LENS, 200), (128, 4, 4, B3_LENS, 200),
+    *((hd, nh, nkv, B3_LENS, 200) for hd in (64, 128)
+      for nh, nkv in ((8, 8), (8, 4), (28, 4), (32, 4))),
+    (64, 32, 2, B3_LENS, 200), (128, 11, 1, B3_LENS, 200),
+    (64, 28, 4, (97, 60, 1), 97), (128, 32, 4, (480, 333, 129, 64), 480),
+    (64, 32, 4, (2048,), 2048),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,nh,nkv", [(64, 8, 2), (128, 4, 4)])
-def test_b3_kernels_match_plain(cuda, dtype, hd, nh, nkv):
+@pytest.mark.parametrize("hd,nh,nkv,lens,S", B3_CASES)
+def test_b3_kernels_match_plain(cuda, dtype, hd, nh, nkv, lens, S):
     from mertools_tpu_torch.ops import flash_attention_causal as fc
 
-    q, k, v, seg, dout = _b3_inputs(cuda, dtype, hd, nh, nkv)
+    q, k, v, seg, dout = _b3_inputs(cuda, dtype, hd, nh, nkv, lens, S)
     fwd_tol, grad_tol = B3_TOL[dtype]
     n0 = [f.launches for f in (fc.flash_attention_causal_fwd,
                                fc.flash_attention_causal_bwd_prep,
@@ -191,6 +207,21 @@ def test_b3_kernels_match_plain(cuda, dtype, hd, nh, nkv):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
     for name, got, want in zip("qkv", qk, ref_in):
         assert _rel(got.grad, want.grad) <= grad_tol, name
+
+    # dK/dV and dQ alone against their plain versions on the same lse and
+    # di, and bit for bit the same on a second launch (the group's dK/dV sum
+    # has a fixed order)
+    di = fc.flash_attention_causal_bwd_prep(out.detach(), dout)
+    args = (q, k, v, seg, dout, lse, di)
+    dk, dv = fc.flash_attention_causal_bwd_dkv(*args)
+    dq = fc.flash_attention_causal_bwd_dq(*args)
+    dk2, dv2 = fc.flash_attention_causal_bwd_dkv(*args)
+    dq2 = fc.flash_attention_causal_bwd_dq(*args)
+    torch.cuda.synchronize()
+    for got, want in zip((dk, dv, dq), (*fc.bwd_dkv_ref(*args),
+                                        fc.bwd_dq_ref(*args))):
+        assert _rel(got, want) <= grad_tol
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)
 
 
 def test_b3_ragged_length_not_a_tile_multiple(cuda):
