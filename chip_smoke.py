@@ -12,8 +12,9 @@ KV heads, vocab 32000) — and checks them:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
-2. kernel vs plain: the flash-attention kernel against its plain PyTorch
-   version at HuBERT-large shapes, fp32 and bf16, with CUDA-event times;
+2. kernel vs plain: the flash-attention kernel (B1) against its plain
+   PyTorch version at HuBERT-large shapes, fp32 and bf16, with device times
+   beside SDPA with the key mask;
 3. extraction: ``AudioExtractor`` on 64 clips of 2-10 s in four modes (fp32
    parity, bf16, bf16 + flash kernel, int16 wire + bf16 + flash kernel);
    clips/s, launch counts, cross-mode agreement, and fp32 against the
@@ -45,9 +46,9 @@ KV heads, vocab 32000) — and checks them:
 
     python3 chip_smoke.py --b3-times DIR
 
-prints only phase 9's bf16 timing lines for the port in the checkout DIR
-(an earlier commit unpacked beside this one), to compare B3 versions within
-one call.
+prints only phase 9's bf16 timing lines and phase 2's bf16 B1 line for the
+port in the checkout DIR (an earlier commit unpacked beside this one), to
+compare versions of the attention kernels (B1, B3) within one call.
 
 Before each path runs, its kernels' launch counts are set to 0; they are
 read right after it. It prints one JSON line about the kernels and, last, one JSON line
@@ -135,12 +136,18 @@ def demangle(sym: str) -> str:
     return f"{name}<{','.join(args)}>" if args else name
 
 
+# the wgmma kernels, each built at hd 64 and 128; no name is a prefix of
+# another
+WGMMA_KERNELS = ("causal_fwd_wgmma", "dkv_wgmma", "dq_wgmma", "bidir_fwd_wgmma")
+
+
 def check_no_spills(log: str) -> dict:
-    """Phase 1: the bf16 backward kernels appear in the build's ``ptxas -v``
-    output (this build's, or the one kept beside a reused library) at both
-    head dims, without spill bytes. Returns every kernel's usage."""
+    """Phase 1: the bf16 wgmma kernels (B3's forward, dK/dV and dQ, and
+    B1's) appear in the build's ``ptxas -v`` output (this build's, or the
+    one kept beside a reused library) at both head dims, without spill
+    bytes. Returns every kernel's usage."""
     usage = ptxas_usage(log)
-    for name in ("dkv_wgmma", "dq_wgmma"):
+    for name in WGMMA_KERNELS:
         got = {k: u for k, u in usage.items() if k.startswith(name)}
         check(len(got) == 2 and all(u[1] == u[2] == 0 for u in got.values()),
               f"{name}: ptxas reports {got}, want two head dims without spills")
@@ -182,20 +189,70 @@ def cuda_ms(torch, fn, reps: int = 20, device_only: bool = False) -> list[float]
     return ts
 
 
-def phase_kernel(torch, fa, card):
-    """Kernel vs plain version at HuBERT-large attention shapes."""
-    B, T, nh, hd = 16, 499, 16, 64
+B1_SHAPE = (16, 499, 16, 64)   # HuBERT-large attention: B, T, nh, hd
+
+
+def b1_inputs(torch, dtype):
+    """Phase 2's inputs at ``B1_SHAPE``: q (pre-scaled), k, v and ragged
+    key lengths (with a row of length 1 and one of 0), from seed 0."""
+    B, T, nh, hd = B1_SHAPE
     rng = np.random.default_rng(0)
     lens = [499, 480, 250, 49, 1, 0] + rng.integers(1, T + 1, B - 6).tolist()
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q0, k0, v0 = (rng.normal(size=(B, T, nh, hd)).astype(np.float32)
                   for _ in range(3))
     q0 *= hd ** -0.5
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in (q0, k0, v0))
+    return q, k, v, kv_len, lens
+
+
+def b1_bound(lens, kind: str) -> tuple[float, str, float]:
+    """(bound ms, "bytes" or "operations", FLOP) of one B1 call at
+    ``B1_SHAPE``: q, k, v read and out written once; both products over the
+    keys each row attends to (rows with kv_len 0 do none)."""
+    B, T, nh, hd = B1_SHAPE
+    es = 4 if kind == "fp32" else 2
+    flops = 4.0 * hd * nh * T * sum(min(n, T) for n in lens)
+    return (*bound(4.0 * B * T * nh * hd * es + 4 * B, flops, kind), flops)
+
+
+def b1_times(torch, fa, q, k, v, kv_len, plain: bool) -> dict:
+    """Device-only CUDA-event medians of 20, in turns, so drift hits all
+    alike: the kernel and SDPA with the key mask (the yardstick, never
+    called by the port); with ``plain``, the plain version and the
+    encoder's inline attention (what it runs with flash=False)."""
+    T = q.shape[1]
     bias = torch.where(torch.arange(T, device="cuda")[None, :] < kv_len[:, None],
                        0.0, -1e30)[:, None, None, :]
+
+    def inline():
+        w = torch.softmax(torch.einsum("bqnd,bknd->bnqk", q, k)
+                          + bias.to(q.dtype), dim=-1)
+        return torch.einsum("bnqk,bknd->bqnd", w, v)
+
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    key_ok = (bias == 0)    # (B, 1, 1, T)
+    runs = {"kernel": lambda: fa.flash_attention(q, k, v, kv_len)}
+    if plain:
+        runs.update(plain=lambda: fa.flash_attention_ref(q, k, v, kv_len),
+                    inline=inline)
+    runs["library"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=key_ok, scale=1.0)
+    for f in runs.values():
+        f()
+    times = {n: [] for n in runs}
+    for _ in range(20):
+        for n, f in runs.items():
+            times[n] += cuda_ms(torch, f, reps=1, device_only=True)
+    return {n: float(np.median(t)) for n, t in times.items()}
+
+
+def phase_kernel(torch, fa, card):
+    """Kernel vs plain version at HuBERT-large shapes."""
+    B, T, nh, hd = B1_SHAPE
     res = {}
     for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in (q0, k0, v0))
+        q, k, v, kv_len, lens = b1_inputs(torch, dtype)
         out = fa.flash_attention(q, k, v, kv_len)
         torch.cuda.synchronize()
         ref = fa.flash_attention_ref(q.float(), k.float(), v.float(), kv_len)
@@ -205,34 +262,8 @@ def phase_kernel(torch, fa, card):
         check(bool((out[5] == 0).all()), f"{name}: kv_len=0 row not zero")
         check(rel <= KERNEL_TOL[name], f"{name}: rel err {rel} > "
                                        f"{KERNEL_TOL[name]}")
-
-        def inline():  # what the encoder runs with flash=False
-            w = torch.softmax(torch.einsum("bqnd,bknd->bnqk", q, k)
-                              + bias.to(dtype), dim=-1)
-            return torch.einsum("bnqk,bknd->bqnd", w, v)
-
-        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        key_ok = (bias == 0)    # (B, 1, 1, T)
-
-        def library():  # the yardstick, never called by the port
-            return torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=key_ok, scale=1.0)
-
-        runs = {"kernel": lambda: fa.flash_attention(q, k, v, kv_len),
-                "plain": lambda: fa.flash_attention_ref(q, k, v, kv_len),
-                "inline": inline, "library": library}
-        for f in runs.values():
-            f()
-        times = {n: [] for n in runs}
-        for _ in range(20):  # in turns, so drift hits all three alike
-            for n, f in runs.items():
-                times[n] += cuda_ms(torch, f, reps=1, device_only=True)
-        med = {n: float(np.median(t)) for n, t in times.items()}
-        # q, k, v read and out written once; both products over the keys
-        # each row attends to (rows with kv_len 0 do none)
-        es = 4 if name == "fp32" else 2
-        flops = 4.0 * hd * nh * T * sum(min(n, T) for n in lens)
-        b_ms, b_by = bound(4.0 * B * T * nh * hd * es + 4 * B, flops, name)
+        med = b1_times(torch, fa, q, k, v, kv_len, plain=True)
+        b_ms, b_by, flops = b1_bound(lens, name)
         res[name] = dict(max_abs_err=err, rel_err=rel, ms=med["kernel"],
                          plain_ms=med["plain"], inline_ms=med["inline"],
                          library_ms=med["library"], bound_ms=b_ms, bound_by=b_by)
@@ -1187,10 +1218,13 @@ run:
 
 
 def b3_times_of(torch, root: str) -> int:
-    """Phase 9's bf16 timing lines (S 512 and S 1024) for the port in the
+    """Phase 9's bf16 timing lines (S 512 and S 1024) and phase 2's bf16 B1
+    line (kernel, SDPA with the key mask, bound) for the port in the
     checkout at ``root``, e.g. an earlier commit unpacked beside this one,
-    so two versions of B3 can be compared within one call."""
+    so two versions of the attention kernels can be compared within one
+    call."""
     sys.path.insert(0, os.path.abspath(root))
+    from mertools_tpu_torch.ops import flash_attention as fa
     from mertools_tpu_torch.ops import flash_attention_causal as fc
 
     card = card_line()
@@ -1199,6 +1233,12 @@ def b3_times_of(torch, root: str) -> int:
             f"B=8 S=512 lens={list(B3_LENS)}", card)
     b3_line(b3_times(torch, fc, (1024,) * 4, 1024, plain=False),
             "B=4 S=1024 full lengths", card)
+    q, k, v, kv_len, lens = b1_inputs(torch, torch.bfloat16)
+    med = b1_times(torch, fa, q, k, v, kv_len, plain=False)
+    b_ms, b_by, _ = b1_bound(lens, "bf16")
+    print(f"[b1 times] bf16 B,T,nh,hd={B1_SHAPE} (device ms, median of 20): "
+          f"kernel {med['kernel']:.4f}, SDPA with the key mask "
+          f"{med['library']:.4f}; bound {b_ms:.4f} by {b_by} [{card}]", flush=True)
     return 0
 
 

@@ -85,14 +85,19 @@ def use_b3(device, llm_cfg) -> bool:
             and llm_cfg.head_dim in SUPPORTED_HEAD_DIMS)
 
 
-def build_model(mcfg: dict, device="cpu", seed: int = 42):
+def build_model(mcfg: dict, device="cuda", seed: int = 42):
     """(AffectGPT on ``device``, tokenizer or None) from the model section.
-    Weights are drawn from ``seed``; a real ``llm_checkpoint`` replaces the
-    LLM base (the LoRA deltas keep their init)."""
+    ``device`` is the card unless the caller asks for ``"cpu"``; a host
+    without a card raises rather than falling back to the CPU. Weights are
+    drawn from ``seed``; a real ``llm_checkpoint`` replaces the LLM base
+    (the LoRA deltas keep their init)."""
+    from ..core.device import resolve_device
     from ..mllm.affectgpt import SEGMENTS_BY_MODE, AffectGPTConfig, build
     from ..mllm.llm import LLMConfig
     from ..mllm.qformer import QFormerConfig
 
+    # TF32 stays as the caller set it (main: off unless run.amp is bf16)
+    device = resolve_device(device, fp32=False)
     if mcfg.get("llm_checkpoint", "tiny") == "tiny":
         llm_cfg = LLMConfig.tiny(vocab=int(mcfg.get("vocab_size", 256)),
                                  lora_r=int(mcfg.get("lora_r", 4)))

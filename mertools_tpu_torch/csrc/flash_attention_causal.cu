@@ -14,9 +14,10 @@
 // with g(h) = h / (nh / nkv) (GQA: kv heads are indexed, never repeated).
 // Every row has at least one key (itself), so pad rows (segment 0) attend to
 // the earlier pad keys and stay finite, as in the library. Four kernels:
-//   fwd : one block per (64-query tile, head, b); a loop over the key tiles
-//         up to the diagonal with the online softmax; writes O and the row
-//         logsumexp lse = m + log(l) in fp32.
+//   fwd : one block per (64-query tile, head, b), in bf16 the last query
+//         tile (the longest walk) first; a loop over the key tiles up to the
+//         diagonal with the online softmax; writes O and the row logsumexp
+//         lse = m + log(l) in fp32, natural units.
 //   prep: di[b, h, i] = sum_d dO . O (fp32), one warp per row.
 //   dkv : dK and dV, each the sum over the kv head's group of query heads.
 //         bf16: one block per (64-key tile, slice of the group's heads, b),
@@ -41,16 +42,22 @@
 // GFLOP (12.8 us against 12.2 us: bytes and operations about equal); dq
 // 55.6 MB for 9.0 GFLOP (16.6 us against 9.1 us: bytes). With the tiles
 // padded to 64 rows dkv executes ~19 GFLOP and dq ~14.
-//  * bf16 forward: every product with mma.sync m16n8k16 (bf16 in, fp32
-//    accumulate), 4 warps of 16 rows; score accumulators become the A
-//    operand of the next product in registers (as in flash_attention_fwd.cu);
-//    V is staged transposed in shared memory. Not yet pipelined.
-//  * bf16 backward (dkv, dq): wgmma on one warpgroup per block, tiles by
-//    cp.async through a ring of three stages (two for dq at hd 128, where
-//    a third would leave one block an SM) in the swizzle wgmma reads both
-//    K-major and MN-major, so no operand is read twice or transposed; the
-//    grids give 2048 blocks at the training shape, the longest walks first
-//    (see the section note above dkv_wgmma).
+//    The forward's 64 x 64 tiles up to the diagonal are ~9.7 GFLOP of padded
+//    products, 10 us at the bf16 peak: the bytes and the padded products
+//    bound it about equally, so it needs both the copies hidden and the
+//    tensor cores fed.
+//  * bf16 (all three kernels): wgmma on one warpgroup per block, tiles by
+//    cp.async through rings of stages (three at hd 64; two for the forward
+//    and dq at hd 128, where a third would leave one block an SM) in the
+//    swizzle wgmma reads both K-major and MN-major, so no operand is read
+//    twice or transposed (V in the forward's P V is read MN-major from its
+//    one copy); the grids give 2048 blocks at the training shape, the
+//    longest walks first. The forward (causal_fwd_wgmma, with the main loop
+//    of hopper_wgmma.cuh) overlaps each step's softmax with the previous
+//    step's P V product, skips the per-element mask on tiles wholly below
+//    the diagonal and inside one segment, and exponentiates with ex2 with
+//    log2(e) / sqrt(hd) folded into one FMA (see the notes above the
+//    kernels).
 //  * fp32 (parity mode): plain FMAs through shared memory, never TF32.
 
 #include <cooperative_groups.h>
@@ -59,14 +66,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_wgmma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kBlock = 64;        // query rows (fwd, dq) or key rows (dkv) per block
 constexpr int kFmaThreads = 256;  // fp32: 16 x 16 threads, 4 rows each
-constexpr int kMmaThreads = 128;  // bf16: 4 warps x 16 rows
-typedef __nv_bfloat16 bf16;
 
 struct Str {  // element strides of a (B, S, heads, hd) tensor
   int b, t, h;
@@ -466,431 +473,22 @@ dkv_fma(const float* __restrict__ q, const float* __restrict__ k, const float* _
   }
 }
 
-// ------------------------------------------------------- bf16, tensor cores
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two floats -> bf16x2, the lower column in the low half (fragment order).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows p[0 .. 15] (row stride ld), p already at (row g, col 2c).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p, int ld) {
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// Score C fragments of n-tiles 2kk, 2kk+1 -> the A fragment of k-step kk.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Rows t0 .. t0 + ROWS - 1 of one head as 16-byte vectors (zeros past S),
-// row-major with row stride ld.
-template <int HD, int ROWS>
-__device__ __forceinline__ void mma_load(bf16* dst, int ld, const bf16* src, int ts, int t0,
-                                         int S) {
-  constexpr int CH = HD / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += kMmaThreads) {
-    const int r = idx / CH, c = (idx % CH) * 8, t = t0 + r;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        t < S ? *reinterpret_cast<const uint4*>(src + (long long)t * ts + c) : zero;
-  }
-}
-
-// The same rows transposed: dst[d * ld + r]. Neighbouring threads take
-// neighbouring rows, so a warp's stores land in one shared row.
-template <int HD, int ROWS>
-__device__ __forceinline__ void mma_load_t(bf16* dst, int ld, const bf16* src, int ts, int t0,
-                                           int S) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int idx = threadIdx.x; idx < ROWS * (HD / 8); idx += kMmaThreads) {
-    const int r = idx % ROWS, c = (idx / ROWS) * 8, t = t0 + r;
-    const uint4 val = t < S ? *reinterpret_cast<const uint4*>(src + (long long)t * ts + c) : zero;
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * ld + r] = e[i];
-  }
-}
-
-// Fragment layout of mma.m16n8k16 (PTX ISA), lane = 4 * g + c:
-//   A (16x16): a0 = (g, 2c..2c+1), a1 = (g+8, 2c..), a2 = (g, 2c+8..), a3 = (g+8, 2c+8..)
-//   B (16x8):  b0 = (k 2c..2c+1, n g), b1 = (k 2c+8..2c+9, n g)
-//   C (16x8):  c0,c1 = (g, 2c..2c+1), c2,c3 = (g+8, 2c..2c+1)
-
-template <int HD>
-constexpr size_t fwd_mma_smem() {
-  return sizeof(bf16) * (2 * size_t(kBlock) * (HD + 8) + size_t(HD) * (kBlock + 8)) +
-         sizeof(int) * kBlock;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-        const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse, int S,
-        int group, float scale, Str sq, Str sk, Str sv, Str so) {
-  constexpr int LDQ = HD + 8, LDV = kBlock + 8;
-  constexpr int KQ = HD / 16, NS = kBlock / 8, KP = kBlock / 16, NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char msm[];
-  bf16* sQ = reinterpret_cast<bf16*>(msm);
-  bf16* sK = sQ + kBlock * LDQ;
-  bf16* sVt = sK + kBlock * LDQ;
-  int* sSeg = reinterpret_cast<int*>(sVt + HD * LDV);
-
-  const int b = blockIdx.z, h = blockIdx.y, nh = gridDim.y, q0 = blockIdx.x * kBlock;
-  const int kvh = h / group;
-  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, c2 = (tid & 3) * 2;
-  const bf16* qb = q + (long long)b * sq.b + (long long)h * sq.h;
-  const bf16* kb = k + (long long)b * sk.b + (long long)kvh * sk.h;
-  const bf16* vb = v + (long long)b * sv.b + (long long)kvh * sv.h;
-  bf16* ob = o + (long long)b * so.b + (long long)h * so.h;
-  const int* segb = seg + (long long)b * S;
-
-  mma_load<HD, kBlock>(sQ, LDQ, qb, sq.t, q0, S);
-  __syncthreads();
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qa[KQ][4];
-#pragma unroll
-  for (int kk = 0; kk < KQ; ++kk) load_a(qa[kk], sQ + r0 * LDQ + kk * 16 + c2, LDQ);
-  const int t0 = q0 + r0, t1 = t0 + 8;
-  const int sg0 = t0 < S ? segb[t0] : 0, sg1 = t1 < S ? segb[t1] : 0;
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.0f, 0.0f};  // this thread's partial sums
-
-  const int kend = min(q0 + kBlock, S);
-  for (int k0 = 0; k0 < kend; k0 += kBlock) {
-    mma_load<HD, kBlock>(sK, LDQ, kb, sk.t, k0, S);
-    mma_load_t<HD, kBlock>(sVt, LDV, vb, sv.t, k0, S);
-    load_seg(sSeg, segb, k0, kBlock, S);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < KQ; ++kk)
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const bf16* p = sK + (n * 8 + g) * LDQ + kk * 16 + c2;
-        mma_16816(s[n], qa[kk], ld32(p), ld32(p + 8));
-      }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n * 8 + c2 + e, j = k0 + col, js = sSeg[col];
-        s[n][e] = (t0 < S && j <= t0 && js == sg0) ? s[n][e] * scale : -INFINITY;
-        s[n][2 + e] = (t1 < S && j <= t1 && js == sg1) ? s[n][2 + e] * scale : -INFINITY;
-        mx[0] = fmaxf(mx[0], s[n][e]);
-        mx[1] = fmaxf(mx[1], s[n][2 + e]);
-      }
-    float corr[2], m_use[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // the 4 lanes that share a row are neighbours
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float new_max = fmaxf(row_max[i], mx[i]);
-      m_use[i] = new_max == -INFINITY ? 0.0f : new_max;  // no key for this row yet
-      corr[i] = expf(row_max[i] - m_use[i]);
-      row_max[i] = new_max;
-      row_sum[i] *= corr[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m_use[e >> 1]);
-        row_sum[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < KP; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const bf16* p = sVt + (n * 8 + g) * LDV + kk * 16 + c2;
-        mma_16816(acc[n], pa, ld32(p), ld32(p + 8));
-      }
-    }
-    __syncthreads();  // the next tile overwrites sK, sVt and sSeg
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], 1);
-    row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], 2);
-  }
-  const float inv0 = 1.0f / row_sum[0], inv1 = 1.0f / row_sum[1];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + c2;
-    if (t0 < S)
-      *reinterpret_cast<uint32_t*>(ob + (long long)t0 * so.t + c) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (t1 < S)
-      *reinterpret_cast<uint32_t*>(ob + (long long)t1 * so.t + c) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
-  if ((tid & 3) == 0) {
-    float* lb = lse + ((long long)b * nh + h) * S;
-    if (t0 < S) lb[t0] = row_max[0] + logf(row_sum[0]);
-    if (t1 < S) lb[t1] = row_max[1] + logf(row_sum[1]);
-  }
-}
-
-// -------------------------------------------- bf16 backward, wgmma (Hopper)
+// ------------------------------------------------------ bf16, wgmma (Hopper)
 //
-// The two bf16 backward kernels run one warpgroup (128 threads) per block
-// and run every product as wgmma.mma_async m64nNk16 (bf16 in, fp32
-// accumulate) on a 64-row tile. Tiles come from HBM by cp.async (16-byte
-// copies, zero-filled past S) into a ring of stages, so the next tiles
-// land while the current ones are multiplied. In shared memory a tile of ROWS
-// rows of HD bf16 is stored in the 128-byte swizzle the wgmma descriptors
-// name: HD / 64 column panels of ROWS x 128 bytes, chunk c (8 bf16) of row r
-// at chunk c ^ (r % 8) of its panel. That one copy is read both ways: K-major
-// where the product's reduction runs along hd (K and Q in K Q^T, V and dO in
-// V dO^T, Q and K in Q K^T) and MN-major where it runs along the sequence
-// (dO in P^T dO, Q in dS^T Q, K in dS K), so nothing is read twice from HBM
-// or transposed by hand. P^T, dS^T and dS go from the score accumulators
+// The three bf16 kernels (forward, dK/dV, dQ) run one warpgroup (128
+// threads) per block and run every product as wgmma.mma_async m64nNk16 (bf16
+// in, fp32 accumulate) on a 64-row tile, with the helpers of hopper_wgmma.cuh.
+// Tiles come from HBM by cp.async (16-byte copies, zero-filled past S) into a
+// ring of stages, so the next tiles land while the current ones are
+// multiplied. In shared memory a tile of ROWS rows of HD bf16 is stored in
+// the 128-byte swizzle the wgmma descriptors name: HD / 64 column panels of
+// ROWS x 128 bytes, chunk c (8 bf16) of row r at chunk c ^ (r % 8) of its
+// panel. That one copy is read both ways: K-major where the product's
+// reduction runs along hd (Q and K in Q K^T, K and Q in K Q^T, V and dO in
+// V dO^T) and MN-major where it runs along the sequence (V in P V, dO in
+// P^T dO, Q in dS^T Q, K in dS K), so nothing is read twice from HBM or
+// transposed by hand. P, P^T, dS^T and dS go from the score accumulators
 // into A fragments in registers.
-
-constexpr int kWgThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared, asynchronously; zeros when !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// This thread's landed copies become visible to wgmma's (async-proxy) reads.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Ties registers to this point: no read of an accumulator moves above the
-// wait that completes it, and no register an in-flight wgmma reads is reused.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-}
-
-// Accumulator layout of m64nNk16 (f32), thread t of the warpgroup, warp w =
-// t / 32, lane = 4 g + c: d[4 n + e] is row 16 w + g + 8 (e >> 1), column
-// 8 n + 2 c + (e & 1). The A fragment from registers has mma.m16n8k16's
-// layout on each warp's 16 rows, so columns 16 kk .. 16 kk + 15 of an
-// accumulator are the A fragment of k-step kk of the next product.
-template <int R>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R], int kk) {
-  a[0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
-  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
-}
-
-// d = A (64x16, K-major in shared) * B (16x32, K-major in shared), plus d if acc
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d = A (64x16, K-major in shared) * B (16x64, K-major in shared), plus d if acc
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d += A (64x16, bf16 fragments in registers) * B (16x64, MN-major in shared)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d += A (64x16, bf16 fragments in registers) * B (16x128, MN-major in shared)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// Shared-memory matrix descriptor of wgmma, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-// k-step kk (columns 16 kk .. 16 kk + 15) of a swizzled tile of ROWS rows,
-// read K-major: 8-row groups 1024 bytes apart, 32 bytes per k-step inside
-// the 128-byte swizzled row (the hardware applies the XOR to the address).
-template <int ROWS>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return gmma_desc(tile + (kk >> 2) * (ROWS * 128) + (kk & 3) * 32, 16, 1024);
-}
-// k-step kk (rows 16 kk .. 16 kk + 15) of the same tile read MN-major: the
-// 64-column panels ROWS * 128 bytes apart, 8-row groups 1024 bytes apart.
-template <int ROWS>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return gmma_desc(tile + kk * 2048, ROWS * 128, 1024);
-}
-
-// Byte offset of 16-byte chunk c (columns 8 c .. 8 c + 7) of row r.
-template <int ROWS>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (c >> 3) * (ROWS * 128) + r * 128 + (((c ^ r) & 7) << 4);
-}
-
-// Rows t0 .. t0 + ROWS - 1 of one head into a swizzled tile by cp.async,
-// zeros past S; the caller commits.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src, int ts, int t0,
-                                          int S) {
-  constexpr int CH = HD / 8;
-  static_assert(ROWS * CH % kWgThreads == 0, "whole passes of the warpgroup");
-#pragma unroll
-  for (int i = 0; i < ROWS * CH / kWgThreads; ++i) {
-    const int idx = i * kWgThreads + threadIdx.x, r = idx / CH, c = idx % CH, t = t0 + r;
-    const bool ok = t < S;
-    cp_async16(dst + swz<ROWS>(r, c), src + (long long)(ok ? t : 0) * ts + c * 8, ok);
-  }
-}
-
-// The block's dynamic shared memory from a 1024-byte boundary (the swizzle
-// repeats every 8 rows of 128 bytes); every block of a cluster gets the
-// same offsets.
-__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
-  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
-}
 
 // The softmax scale 1 / sqrt(hd), as a constant of the kernel.
 template <int HD>
@@ -899,21 +497,95 @@ __device__ __forceinline__ constexpr float inv_sqrt_hd() {
   return HD == 64 ? 0.125f : 0.08838834764831845f;
 }
 
-// 2^x by the special function unit (2 ulp, denormal results flushed to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
+// bf16 forward. Grid (nh, B, S / 64 query tiles), the last query tile (the
+// longest walk) launched first. A block holds its 64 query rows of Q and
+// walks the key tiles up to the diagonal through fwd_mainloop (K with the
+// keys' seg, and V, in rings of NST stages). When the query tile lies inside
+// S and in one segment, the walk starts at the tile of that segment's first
+// key (the tiles before it hold no key the rows reach: in a right-padded
+// batch a pad tile skips the prompt), and a key tile in the same segment
+// takes no per-element mask below the diagonal and only the causal one on
+// it; other tiles are masked by position, S and segment. The running max is
+// kept in base 2 (sl2 = log2(e) / sqrt(hd)); lse is written in natural
+// units, m ln 2 + ln l, as the backward and the plain version read it.
+template <int HD, int NST>
+__global__ void __launch_bounds__(kWgThreads)
+causal_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ seg, bf16* __restrict__ o,
+                 float* __restrict__ lse, int S, int group, Str sq, Str sk, Str sv, Str so) {
+  using L = FwdSmem<HD, NST>;
+  constexpr float sl2 = inv_sqrt_hd<HD>() * kLog2e;
+  extern __shared__ unsigned char dsm[];
+  unsigned char* sm = smem_1k(dsm);
+  int* sSeg = reinterpret_cast<int*>(sm + L::ints);
+
+  const int h = blockIdx.x, nh = gridDim.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z, q0 = qt * kBlock, kvh = h / group;
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, c2 = (tid & 3) * 2;
+  const bf16* kb = k + (long long)b * sk.b + (long long)kvh * sk.h;
+  const bf16* vb = v + (long long)b * sv.b + (long long)kvh * sv.h;
+  const int* segb = seg + (long long)b * S;
+
+  load_tile<HD, kBlock>(sm, q + (long long)b * sq.b + (long long)h * sq.h, sq.t, q0, S);
+  auto load_k = [&](int t) {  // key tile t and its seg into stage t % NST
+    if (t > qt) return;
+    load_tile<HD, kBlock>(sm + L::k_ring + (t % NST) * L::tile, kb, sk.t, t * kBlock, S);
+    if (tid < kBlock) {
+      const int j = t * kBlock + tid;
+      cp_async4(sSeg + (t % NST) * kBlock + tid, segb + (j < S ? j : 0), j < S);
+    }
+  };
+  auto load_v = [&](int t) {
+    if (t <= qt) load_tile<HD, kBlock>(sm + L::v_ring + (t % NST) * L::tile, vb, sv.t, t * kBlock, S);
+  };
+
+  const int r0 = warp * 16 + g;  // this thread's query rows: r0 and r0 + 8
+  // row r0 + 8 i's segment (0 past S); read again where needed, not held
+  auto row_seg = [&](int i) { return q0 + r0 + 8 * i < S ? segb[q0 + r0 + 8 * i] : 0; };
+  const int seg0 = segb[q0];  // the query tile's segment, when it has one
+  // the first key of that segment: the key tiles before its tile hold no key
+  // of this query tile (a pad tile skips the whole prompt)
+  int first = q0;
+#pragma unroll 4
+  for (int j = tid; j < q0; j += kWgThreads) first = segb[j] == seg0 ? min(first, j) : first;
+  first = __reduce_min_sync(0xffffffffu, (unsigned)first);
+  __shared__ int warp_first[kWgThreads / 32];
+  if ((tid & 31) == 0) warp_first[warp] = first;
+  const bool quni =
+      __syncthreads_and(q0 + kBlock <= S && row_seg(0) == seg0 && row_seg(1) == seg0);
+  const int t0 = quni ? min(min(warp_first[0], warp_first[1]),
+                            min(warp_first[2], warp_first[3])) / kBlock
+                      : 0;
+
+  auto mask = [&](int t, float (&s)[32]) {
+    const int* ks = sSeg + (t % NST) * kBlock;
+    if (quni && warp_all_seg(ks, kBlock, seg0)) {  // one segment: causal only
+      if (t < qt) return;                           // wholly below the diagonal
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if ((j >> 2) * 8 + c2 + (j & 1) > r0 + 8 * ((j >> 1) & 1)) s[j] = -INFINITY;
+      return;
+    }
+    const int sg[2] = {row_seg(0), row_seg(1)};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int i = (j >> 1) & 1, col = (j >> 2) * 8 + c2 + (j & 1), ti = q0 + r0 + 8 * i;
+      if (!(ti < S && t * kBlock + col <= ti && ks[col] == sg[i])) s[j] = -INFINITY;
+    }
+  };
+  float acc[HD / 2], m[2], l[2];
+  fwd_mainloop<HD, NST>(smem_u32(sm), t0, qt + 1, sl2, load_k, load_v, mask, acc, m, l);
+
+  store_tile<HD>(sm, o + (long long)b * so.b + (long long)h * so.h, so.t, q0, S, r0, c2, acc, l);
+  if ((tid & 3) == 0) {  // l is now the row's whole sum, > 0: the diagonal key is always in
+    float* lb = lse + ((long long)b * nh + h) * S;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (q0 + r0 + 8 * i < S) lb[q0 + r0 + 8 * i] = (m[i] + log2f(l[i])) * kLn2;
+  }
 }
 
-// Every thread of the warp sees segment id v in all n entries of seg.
-__device__ __forceinline__ bool warp_all_seg(const int* seg, int n, int v) {
-  bool same = true;
-  for (int c = threadIdx.x & 31; c < n; c += 32) same &= seg[c] == v;
-  return __all_sync(0xffffffffu, same);
-}
-
-// Both kernels walk a sequence of steps; step i's streamed tiles sit in
+// The two backward kernels walk a sequence of steps; step i's streamed tiles sit in
 // stage i % NST of a ring, copied NST - 1 steps ahead. Per step: wait for
 // the step's tiles, start the two score products (S and dP), form P while
 // dP runs, then start each register-A product as soon as its operand exists
@@ -1285,21 +957,22 @@ Str str(const int* s, int i) { return Str{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 template <int HD>
 cudaError_t fwd_hd(bool bf, const void* q, const void* k, const void* v, const int* seg, void* o,
                    float* lse, int B, int S, int nh, int group, const int* s, cudaStream_t st) {
-  const dim3 grid((S + kBlock - 1) / kBlock, nh, B);
-  const float scale = 1.0f / sqrtf((float)HD);
+  const int tiles = (S + kBlock - 1) / kBlock;
   cudaError_t err;
   if (bf) {
-    constexpr size_t smem = fwd_mma_smem<HD>();
-    if ((err = prepare(fwd_mma<HD>, smem)) != cudaSuccess) return err;
-    fwd_mma<HD><<<grid, kMmaThreads, smem, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, seg, (bf16*)o, lse, S, group, scale,
-        str(s, 0), str(s, 1), str(s, 2), str(s, 3));
+    // rings of 3 at hd 64; 2 at hd 128, where 3 would leave one block an SM
+    constexpr int NST = HD == 128 ? 2 : 3;
+    constexpr size_t smem = FwdSmem<HD, NST>::bytes;
+    if ((err = prepare(causal_fwd_wgmma<HD, NST>, smem)) != cudaSuccess) return err;
+    causal_fwd_wgmma<HD, NST><<<dim3(nh, B, tiles), kWgThreads, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, seg, (bf16*)o, lse, S, group, str(s, 0),
+        str(s, 1), str(s, 2), str(s, 3));
   } else {
     constexpr size_t smem = fwd_fma_smem<HD>();
     if ((err = prepare(fwd_fma<HD>, smem)) != cudaSuccess) return err;
-    fwd_fma<HD><<<grid, kFmaThreads, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, seg, (float*)o, lse, S, group, scale,
-        str(s, 0), str(s, 1), str(s, 2), str(s, 3));
+    fwd_fma<HD><<<dim3(tiles, nh, B), kFmaThreads, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, seg, (float*)o, lse, S, group,
+        1.0f / sqrtf((float)HD), str(s, 0), str(s, 1), str(s, 2), str(s, 3));
   }
   return cudaGetLastError();
 }

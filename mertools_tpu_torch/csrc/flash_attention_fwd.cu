@@ -12,26 +12,34 @@
 // length per row replaces the segment ids exactly. Keys at or past kv_len are
 // never read, so pad rows of K and V may hold anything (even NaN). Query rows
 // past kv_len attend to the valid keys and stay finite. A row with
-// kv_len <= 0 writes zeros. Both kernels read the projections' own
+// kv_len <= 0 writes zeros. Every kernel reads the projections' own
 // (B, T, nh, hd) layout through strides (the head dimension contiguous), so
 // there is no transpose and no pad to a tile multiple.
 //
-// Both kernels: one block per (64-query tile, head, batch row); a loop over
+// Every kernel: one block per (64-query tile, head, batch row); a loop over
 // 64-key tiles staged in shared memory; an online max and sum per query row
 // (the FlashAttention-2 recurrence) with the output accumulator in registers,
 // all in fp32. The (B, nh, T, T) logits never reach device memory.
 //
-// What bounds it on the H100: at HuBERT-large shapes (T = 499, hd = 64, 16
-// rows x 16 heads) a layer's q, k, v and out are 33 MB in bf16 and the two
-// products 16 GFLOP, so compute, not memory, sets the time.
-//  * bf16 (the production mode): both products run on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, fp32 accumulate); each of 4 warps owns 16
-//    query rows, keeps its Q fragments in registers, and turns the score
-//    accumulator into the A operand of P.V without a trip through shared
-//    memory. V is stored transposed in shared memory so that its B fragments
-//    are 32-bit loads. Rows are padded by 8 elements to keep fragment loads
-//    free of bank conflicts. Not yet pipelined (no cp.async / TMA, no wgmma):
-//    loads and math of a tile do not overlap, which is the next step.
+// What bounds it on the H100: at HuBERT-large shapes (B 16, T 499, nh 16,
+// hd 64, ragged kv_len) one call reads q, k and v and writes out, 65 MB in
+// bf16 (19.5 us at 3.35 TB/s), and its 64 x 64 tiles over the valid keys
+// are ~7.5 GFLOP of padded products (7.6 us at the bf16 peak): bytes bound it,
+// so the copies must overlap the products and every byte is read once.
+//  * bf16 at hd 64 and 128 (the production mode; bidir_fwd_wgmma): one
+//    warpgroup per block runs both products as wgmma (bf16 in, fp32
+//    accumulate) through the main loop of hopper_wgmma.cuh. K and V tiles
+//    arrive by cp.async in rings of two stages, copied one step ahead of
+//    the products, zero-filled at and past kv_len (so a NaN
+//    in a pad row never lands in shared memory), in the 128-byte swizzle
+//    that wgmma reads K-major for Q K^T and MN-major for P V, so V is used
+//    as it lies, not transposed. Each step's softmax runs while the previous
+//    step's P V product does; only the one key tile that holds kv_len is
+//    masked; the exponential is ex2 with log2(e) folded into one FMA.
+//  * bf16 at hd 32 (no model of the port uses it; HuBERT and wav2vec2 base
+//    and large use 64): the earlier kernel, flash_attention_fwd_mma, with
+//    mma.sync m16n8k16, 4 warps of 16 query rows, V stored transposed in
+//    shared memory, not pipelined.
 //  * fp32 (the parity mode): plain FMAs, because the tensor cores' TF32
 //    would break fp32 parity. 256 threads, each 4 query rows x (hd / 16)
 //    columns; two shared loads per 16 FMAs, bounded by FMA issue and shared
@@ -41,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -193,7 +203,7 @@ flash_attention_fwd_fma(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-// ------------------------------------------------------- bf16, tensor cores
+// ------------------------------------------------- bf16 at hd 32, mma.sync
 
 template <int HD>
 constexpr size_t mma_smem_bytes() {
@@ -204,12 +214,6 @@ constexpr size_t mma_smem_bytes() {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two floats -> bf16x2, the lower column in the low half (fragment order).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate.
@@ -392,6 +396,61 @@ flash_attention_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   }
 }
 
+
+// ------------------------------------------- bf16 at hd 64 and 128, wgmma
+
+// Grid (T / 64 query tiles, nh, B). A block holds its 64 query rows of Q and
+// walks the key tiles below kv_len through fwd_mainloop; the one tile that
+// holds kv_len masks the keys at and past it.
+template <int HD, int NST>
+__global__ void __launch_bounds__(kWgThreads)
+bidir_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                const int* __restrict__ kv_len, int seq_len,
+                int sqb, int sqt, int sqh, int skb, int skt, int skh,
+                int svb, int svt, int svh, int sob, int sot, int soh) {
+  using L = FwdSmem<HD, NST>;
+  extern __shared__ unsigned char dsm[];
+  unsigned char* sm = smem_1k(dsm);
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, c2 = (tid & 3) * 2;
+  const bf16* kb = k + (long long)b * skb + (long long)h * skh;
+  const bf16* vb = v + (long long)b * svb + (long long)h * svh;
+  bf16* ob = o + (long long)b * sob + (long long)h * soh;
+  const int r0 = warp * 16 + g;  // this thread's query rows: r0 and r0 + 8
+  const int n_keys = min(kv_len[b], seq_len);
+  float acc[HD / 2], m[2], l[2];
+
+  if (n_keys <= 0) {  // filler row: nothing to attend to
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+    l[0] = l[1] = 1.0f;
+    store_tile<HD>(sm, ob, sot, q0, seq_len, r0, c2, acc, l);
+    return;
+  }
+  load_tile<HD, kBlockK>(sm, q + (long long)b * sqb + (long long)h * sqh, sqt, q0, seq_len);
+  auto load_k = [&](int t) {  // zeros at and past kv_len
+    if (t * kBlockK < n_keys)
+      load_tile<HD, kBlockK>(sm + L::k_ring + (t % NST) * L::tile, kb, skt, t * kBlockK, n_keys);
+  };
+  auto load_v = [&](int t) {
+    if (t * kBlockK < n_keys)
+      load_tile<HD, kBlockK>(sm + L::v_ring + (t % NST) * L::tile, vb, svt, t * kBlockK, n_keys);
+  };
+  auto mask = [&](int t, float (&s)[32]) {
+    const int valid = n_keys - t * kBlockK;  // keys of this tile below kv_len
+    if (valid >= kBlockK) return;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if ((j >> 2) * 8 + c2 + (j & 1) >= valid) s[j] = -INFINITY;
+  };
+  // q is pre-scaled, so only log2(e) goes into the exponent
+  fwd_mainloop<HD, NST>(smem_u32(sm), 0, (n_keys + kBlockK - 1) / kBlockK, kLog2e, load_k,
+                        load_v, mask, acc, m, l);
+  store_tile<HD>(sm, ob, sot, q0, seq_len, r0, c2, acc, l);
+}
+
 // ----------------------------------------------------------------- launch
 
 template <typename T>
@@ -416,10 +475,19 @@ template <int HD>
 cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v, void* o,
                       const int* kv_len, int B, int T_len, int nh, const int* s,
                       cudaStream_t stream) {
-  return bf16 ? launch<__nv_bfloat16>(flash_attention_fwd_mma<HD>, mma_smem_bytes<HD>(),
-                                      kMmaThreads, q, k, v, o, kv_len, B, T_len, nh, s, stream)
-              : launch<float>(flash_attention_fwd_fma<HD>, fma_smem_bytes<HD>(), kFmaThreads,
-                              q, k, v, o, kv_len, B, T_len, nh, s, stream);
+  if (!bf16)
+    return launch<float>(flash_attention_fwd_fma<HD>, fma_smem_bytes<HD>(), kFmaThreads, q, k, v,
+                         o, kv_len, B, T_len, nh, s, stream);
+  if constexpr (HD == 32) {
+    return launch<__nv_bfloat16>(flash_attention_fwd_mma<HD>, mma_smem_bytes<HD>(), kMmaThreads,
+                                 q, k, v, o, kv_len, B, T_len, nh, s, stream);
+  } else {
+    // rings of two stages: at hd 64 that leaves the registers to decide the
+    // blocks an SM (four), where a third stage left three and ran slower
+    constexpr int NST = 2;
+    return launch<__nv_bfloat16>(bidir_fwd_wgmma<HD, NST>, FwdSmem<HD, NST>::bytes, kWgThreads,
+                                 q, k, v, o, kv_len, B, T_len, nh, s, stream);
+  }
 }
 
 }  // namespace

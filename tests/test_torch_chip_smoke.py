@@ -15,6 +15,8 @@ import chip_smoke  # noqa: E402
 from mertools_tpu_torch.ops import _kernels  # noqa: E402
 
 DKV = "_ZN58_GLOBAL__N__333af1e6_25_flash_attention_causal_cu_1a8e2b8c9dkv_wgmmaILi{}EEEvPK13__nv_bfloat16S3_S3_PKiS3_PKfS7_PS1_S8_iiiNS_3StrES9_S9_S9_S9_S9_"
+FWD = "_ZN58_GLOBAL__N__333af1e6_25_flash_attention_causal_cu_1a8e2b8c16causal_fwd_wgmmaILi{}ELi{}EEEvPK13__nv_bfloat16S3_S3_PKiPS1_PfiiNS_3StrES9_S9_S9_"
+B1 = "_ZN55_GLOBAL__N__9c1d02a7_22_flash_attention_fwd_cu_5f2e9a1c15bidir_fwd_wgmmaILi{}ELi{}EEEvPK13__nv_bfloat16S3_S3_PS1_PKiiiiiiiiiiiiii"
 DQ = "_ZN58_GLOBAL__N__333af1e6_25_flash_attention_causal_cu_1a8e2b8c8dq_wgmmaILi{}ELi{}EEEvPK13__nv_bfloat16S3_S3_PKiS3_PKfS7_PS1_iiNS_3StrES9_S9_S9_S9_"
 
 
@@ -28,8 +30,12 @@ def _entry(sym, regs, spill=0):
 
 MEL = ("ptxas info    : Compiling entry function 'mel_power_fwd' for 'sm_90a'\n"
        "ptxas info    : Used 210 registers, 384 bytes cmem[0]\n")
-CLEAN = (_entry(DKV.format(64), 130) + _entry(DKV.format(128), 216)
-         + _entry(DQ.format(64, 3), 168) + _entry(DQ.format(128, 2), 254) + MEL)
+# every wgmma kernel at both head dims: (entry, registers)
+WGMMA = [(FWD.format(64, 3), 136), (FWD.format(128, 2), 196),
+         (DKV.format(64), 130), (DKV.format(128), 216),
+         (DQ.format(64, 3), 168), (DQ.format(128, 2), 254),
+         (B1.format(64, 2), 125), (B1.format(128, 2), 162)]
+CLEAN = "".join(_entry(sym, regs) for sym, regs in WGMMA) + MEL
 
 
 def test_ptxas_usage_reads_registers_and_spills_per_kernel():
@@ -42,14 +48,23 @@ def test_ptxas_usage_reads_registers_and_spills_per_kernel():
     assert chip_smoke.ptxas_usage("") == {}
 
 
+def _spilled(sym, regs):
+    return CLEAN.replace(_entry(sym, regs), _entry(sym, regs, 16))
+
+
 @pytest.mark.parametrize("log,match", [
-    (CLEAN.replace(_entry(DQ.format(128, 2), 254),
-                   _entry(DQ.format(128, 2), 254, 16)), "dq_wgmma"),
+    (_spilled(DQ.format(128, 2), 254), "dq_wgmma"),
     (CLEAN.replace(_entry(DKV.format(128), 216), ""), "dkv_wgmma"),
-    ("", "dkv_wgmma"),
+    ("", "causal_fwd_wgmma"),
+    (_spilled(FWD.format(64, 3), 136), "causal_fwd_wgmma"),
+    (_spilled(FWD.format(128, 2), 196), "causal_fwd_wgmma"),
+    (CLEAN.replace(_entry(FWD.format(128, 2), 196), ""), "causal_fwd_wgmma"),
+    (_spilled(B1.format(64, 2), 125), "bidir_fwd_wgmma"),
+    (_spilled(B1.format(128, 2), 162), "bidir_fwd_wgmma"),
+    (CLEAN.replace(_entry(B1.format(64, 2), 125), ""), "bidir_fwd_wgmma"),
 ])
 def test_phase1_spill_check_fails_on_a_spill_or_a_missing_kernel(log, match):
-    assert len(chip_smoke.check_no_spills(CLEAN)) == 5
+    assert len(chip_smoke.check_no_spills(CLEAN)) == len(WGMMA) + 1
     with pytest.raises(RuntimeError, match=match):
         chip_smoke.check_no_spills(log)
 

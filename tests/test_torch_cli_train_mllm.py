@@ -77,7 +77,7 @@ def test_train_mllm_smoke(tmp_path):
     fresh, _ = build_model({"llm_checkpoint": "tiny", "vocab_size": 96,
                             "lora_r": 2, "video_dim": 12, "audio_dim": 10,
                             "video_queries": 4, "audio_queries": 2,
-                            "max_video_frames": 8}, seed=5)
+                            "max_video_frames": 8}, device="cpu", seed=5)
     assert overlay_trainable(fresh, str(out / "checkpoint_0")) == 0
     for (n, p), q in zip(fresh.named_parameters(), model.parameters()):
         if n.startswith("video_qformer") or n.endswith("lora_B"):
@@ -89,7 +89,7 @@ def test_restore_model_defaults_to_the_card(tmp_path, monkeypatch):
     without a card the default raises instead of falling back."""
     model, _ = build_model({"llm_checkpoint": "tiny", "vocab_size": 96,
                             "lora_r": 2, "video_dim": 12, "audio_dim": 10,
-                            "fusion": "mean"})
+                            "fusion": "mean"}, device="cpu")
     path = save_model(str(tmp_path / "model"), model)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -155,20 +155,32 @@ def test_epoch_checkpoint_selection(tmp_path):
 def test_build_model_yaml_levers():
     base = {"llm_checkpoint": "tiny", "vocab_size": 96, "lora_r": 2,
             "video_dim": 12, "audio_dim": 10, "fusion": "mean"}
-    m, tok = build_model(dict(base))
+    m, tok = build_model(dict(base), device="cpu")
     assert tok is None
     assert m.cfg.llm.remat is False and m.cfg.loss_chunk == 0
     assert not m.cfg.llm.use_flash_attention and m.cfg.llm.head_dim == 8
     m, _ = build_model(dict(base, remat=True, remat_policy="dots", loss_chunk=64,
-                            llm_hidden_size=256))
+                            llm_hidden_size=256), device="cpu")
     assert m.cfg.llm.remat and m.cfg.llm.remat_policy == "dots"
     assert m.cfg.loss_chunk == 64 and m.cfg.llm.head_dim == 64
     # kernel B3 is chosen by the device and the head dim, not by a key
     assert not m.cfg.llm.use_flash_attention
     assert use_b3("cuda:0", m.cfg.llm) and not use_b3("cpu", m.cfg.llm)
-    assert not use_b3("cuda", build_model(dict(base))[0].cfg.llm)
+    assert not use_b3("cuda", build_model(dict(base), device="cpu")[0].cfg.llm)
     with pytest.raises(ValueError, match="remat_policy"):
-        build_model(dict(base, remat=True, remat_policy="dot"))
+        build_model(dict(base, remat=True, remat_policy="dot"), device="cpu")
+
+
+def test_build_model_defaults_to_the_card(monkeypatch):
+    """build_model builds on the card unless asked for the CPU; on a host
+    without a card the default raises instead of falling back."""
+    base = {"llm_checkpoint": "tiny", "vocab_size": 96, "lora_r": 2,
+            "video_dim": 12, "audio_dim": 10, "fusion": "mean"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(dict(base))
+    m, _ = build_model(dict(base), device="cpu")
+    assert next(m.parameters()).device.type == "cpu"
 
 
 @pytest.mark.parametrize("argv,extra,match", [
@@ -208,4 +220,4 @@ def test_real_checkpoint_needs_transformers_only_for_the_tokenizer(
     monkeypatch.setitem(sys.modules, "transformers", None)
     with pytest.raises(SystemExit, match="transformers"):
         build_model({"llm_checkpoint": str(ckpt), "video_dim": 12,
-                     "audio_dim": 10})
+                     "audio_dim": 10}, device="cpu")

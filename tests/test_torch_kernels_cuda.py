@@ -58,23 +58,52 @@ def test_kernel_matches_plain(cuda, dtype, hd):
     assert torch.equal(out[5], torch.zeros_like(out[5]))
 
 
-def test_pad_values_never_read(cuda):
-    kv_len = torch.tensor([100, 7], dtype=torch.int32, device=cuda)
-    q, k, v = _inputs(cuda, 2, 130, 2, 64, torch.float32, seed=1)
-    base = flash_attention(q, k, v, kv_len)
-    k2, v2 = k.clone(), v.clone()
-    k2[0, 100:] = float("nan")
-    v2[1, 7:] = float("nan")
-    out = flash_attention(q, k2, v2, kv_len)
-    torch.cuda.synchronize()
-    assert torch.equal(out, base)
+# key lengths around the 64-key tiles of the bf16 kernel (only the tile that
+# holds kv_len is masked), a filler row, and lengths past T (cut to T)
+B1_LENS = (0, 1, 63, 64, 65, 130, 499)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_strided_fused_qkv(cuda, dtype):
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("T", [130, 499])
+def test_kernel_key_lengths_around_tile_edges(cuda, dtype, hd, T):
+    kv_len = torch.tensor(B1_LENS, dtype=torch.int32, device=cuda)
+    q, k, v = _inputs(cuda, len(B1_LENS), T, 3, hd, dtype, seed=4)
+    out = flash_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), kv_len)
+    rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= TOL[dtype], rel
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_pad_values_never_read(cuda, dtype, hd):
+    """NaN in the pad rows of K and V changes nothing: every row stays
+    finite and equal to the plain version on the clean inputs."""
+    kv_len = torch.tensor([100, 7], dtype=torch.int32, device=cuda)
+    q, k, v = _inputs(cuda, 2, 130, 2, hd, dtype, seed=1)
+    base = flash_attention(q, k, v, kv_len)
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate((100, 7)):
+        k2[b, n:] = float("nan")
+        v2[b, n:] = float("nan")
+    out = flash_attention(q, k2, v2, kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(out, base)
+    assert torch.isfinite(out).all()
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), kv_len)
+    assert ((out.float() - ref).abs().max() / ref.abs().max()).item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_strided_fused_qkv(cuda, dtype, hd):
     """q, k, v as slices of one fused (B, T, 3, nh, hd) tensor."""
     rng = np.random.default_rng(2)
-    qkv = torch.from_numpy(rng.normal(size=(3, 77, 3, 2, 64))
+    qkv = torch.from_numpy(rng.normal(size=(3, 77, 3, 2, hd))
                            .astype(np.float32)).to(cuda, dtype)
     q, k, v = qkv.unbind(2)
     kv_len = torch.tensor([77, 30, 0], dtype=torch.int32, device=cuda)
@@ -82,6 +111,7 @@ def test_strided_fused_qkv(cuda, dtype):
     ref = flash_attention_ref(q.float(), k.float(), v.float(), kv_len)
     rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
     assert rel <= TOL[dtype], rel
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
 
 
 def test_cuda_tensors_never_fall_back(cuda):
@@ -222,6 +252,37 @@ def test_b3_kernels_match_plain(cuda, dtype, hd, nh, nkv, lens, S):
                                         fc.bwd_dq_ref(*args))):
         assert _rel(got, want) <= grad_tol
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_b3_packed_and_repeated_segments(cuda, dtype, hd):
+    """Segments other than right padding: packed runs (1, 2, 3), an id that
+    comes back after another (5, 0, 5, 0: the second run of 5 reaches the
+    first), and one segment throughout; the forward starts a uniform query
+    tile's walk at its segment's first key, so these hold that start."""
+    from mertools_tpu_torch.ops import flash_attention_causal as fc
+
+    S = 256
+    runs = [[(1, 70), (2, 130), (3, 56)], [(5, 64), (0, 64), (5, 64), (0, 64)],
+            [(7, 256)]]
+    seg = torch.tensor([[i for i, n in row for _ in range(n)] for row in runs],
+                       dtype=torch.int32, device=cuda)
+    q, k, v, _, dout = _b3_inputs(cuda, dtype, hd, 8, 2, lens=(S,) * 3, S=S, seed=5)
+    fwd_tol, grad_tol = B3_TOL[dtype]
+    qk = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fc.flash_attention_causal(*qk, seg)
+    out.backward(dout)
+    _, lse = fc.flash_attention_causal_fwd(q, k, v, seg)
+    torch.cuda.synchronize()
+    ref_in = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    ref, ref_lse = fc.causal_attention_fwd_ref(*ref_in, seg)
+    ref.backward(dout.float())
+    assert torch.isfinite(out).all()
+    assert _rel(out, ref) <= fwd_tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    for name, got, want in zip("qkv", qk, ref_in):
+        assert _rel(got.grad, want.grad) <= grad_tol, name
 
 
 def test_b3_ragged_length_not_a_tile_multiple(cuda):
