@@ -21,7 +21,8 @@ KV heads, vocab 32000) — and checks them:
    per-clip CPU reference on two clips;
 4. CLI: ``mertools_tpu_torch.cli.extract_audio`` on four PCM16 wavs;
 5. mel kernel vs plain: the fused log-mel kernel (B2) against its plain
-   version (cuFFT) at B = 8 x 30 s, with CUDA-event times;
+   version (cuFFT) at B = 8 x 30 s: its launch shape and ptxas usage, device
+   times, and the plain version's parts timed one by one;
 6. Whisper features: ``WhisperAudioExtractor`` on 16 clips of 2-30 s, f32
    and int16 wires; clips/s, launch counts, kernel against plain frontend
    end to end, a profile of one batch, and the card against the CPU (2 + 2
@@ -34,21 +35,24 @@ KV heads, vocab 32000) — and checks them:
 9. B3: the causal flash attention's four kernels (forward, di pre-pass,
    dK/dV, dQ) against their plain version and autograd at TinyLlama's
    attention (B 8, S 512, ragged padding; fp32 and bf16; hd 64 and 128),
-   dQ/dK/dV bit-equal across two launches, device times beside SDPA's
+   di/dQ/dK/dV bit-equal across two launches, device times beside SDPA's
    forward, backward alone and fwd+bwd, and at B 4 x S 1024;
 10. training: bench.py's AffectGPT step (B 8 x S 512, bf16, chunked loss)
    through ``Runner.train_step`` on kernel B3, a warm-up step and 10 timed
    steps (tokens/s, memory, launch counts, the loss trajectory), a profile
-   of one step, the executed FLOP, the same steps with eager attention, and
-   fp32 on the card against the CPU at full width with 2 LLM layers;
+   of one step, the executed FLOP, layer 0's LoRA gradients of both bf16
+   attention paths against an fp32 eager copy, the same steps with eager
+   attention, and fp32 on the card against the CPU at full width with 2
+   LLM layers;
 11. CLI: ``train_mllm`` on synthetic features (best-setup stream mode),
    2 epochs, then resumed for a third.
 
     python3 chip_smoke.py --b3-times DIR
 
-prints only phase 9's bf16 timing lines and phase 2's bf16 B1 line for the
-port in the checkout DIR (an earlier commit unpacked beside this one), to
-compare versions of the attention kernels (B1, B3) within one call.
+prints only phase 9's bf16 timing lines, phase 2's bf16 B1 line and phase
+5's B2 line for the port in the checkout DIR (an earlier commit unpacked
+beside this one), to compare versions of the kernels (B1, B2, B3) within
+one call.
 
 Before each path runs, its kernels' launch counts are set to 0; they are
 read right after it. It prints one JSON line about the kernels and, last, one JSON line
@@ -59,6 +63,7 @@ prints no result. It imports neither JAX nor ``transformers``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -75,7 +80,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 SR = 16000
 KERNEL_TOL = {"fp32": 2e-5, "bf16": 1e-2}  # max|kernel - ref| / max|ref|
-# B2: both sides fp32, dense DFT vs cuFFT, so rounding only
+# B2: both sides fp32 FFTs (the kernel's own vs cuFFT), so rounding only
 MEL_TOL = 1e-5      # max |kernel - ref| / max |ref| per clip
 LOG_MEL_TOL = 1e-4  # abs, in the (log10 + 4) / 4 domain
 # B3 against its plain version, max |kernel - ref| / max |ref|: fp32 differs
@@ -136,21 +141,22 @@ def demangle(sym: str) -> str:
     return f"{name}<{','.join(args)}>" if args else name
 
 
-# the wgmma kernels, each built at hd 64 and 128; no name is a prefix of
-# another
-WGMMA_KERNELS = ("causal_fwd_wgmma", "dkv_wgmma", "dq_wgmma", "bidir_fwd_wgmma")
+# the kernels phase 1 holds to no spills, with how many builds each has: the
+# wgmma kernels at hd 64 and 128, B2 once; no name is a prefix of another
+SPILL_CHECKED = {"causal_fwd_wgmma": 2, "dkv_wgmma": 2, "dq_wgmma": 2,
+                 "bidir_fwd_wgmma": 2, "mel_power_fwd": 1}
 
 
 def check_no_spills(log: str) -> dict:
     """Phase 1: the bf16 wgmma kernels (B3's forward, dK/dV and dQ, and
-    B1's) appear in the build's ``ptxas -v`` output (this build's, or the
-    one kept beside a reused library) at both head dims, without spill
-    bytes. Returns every kernel's usage."""
+    B1's, at both head dims) and B2 appear in the build's ``ptxas -v``
+    output (this build's, or the one kept beside a reused library) without
+    spill bytes. Returns every kernel's usage."""
     usage = ptxas_usage(log)
-    for name in WGMMA_KERNELS:
+    for name, builds in SPILL_CHECKED.items():
         got = {k: u for k, u in usage.items() if k.startswith(name)}
-        check(len(got) == 2 and all(u[1] == u[2] == 0 for u in got.values()),
-              f"{name}: ptxas reports {got}, want two head dims without spills")
+        check(len(got) == builds and all(u[1] == u[2] == 0 for u in got.values()),
+              f"{name}: ptxas reports {got}, want {builds} build(s) without spills")
     return usage
 
 
@@ -433,9 +439,75 @@ def mel_inputs(torch):
     return torch.from_numpy(wav).cuda()
 
 
-def phase_mel(torch, mel, mf, card):
-    """Kernel B2 against its plain version (cuFFT + matmul) at B = 8."""
+def mel_bound(mel) -> tuple[float, str, float, int]:
+    """(bound ms, "bytes" or "operations", FLOP, filterbank nonzeros) of B2
+    at B = 8 x 30 s: the wav read and the mel power written once; the
+    operations the function needs per frame (not a dense DFT): the window,
+    a 400-point real FFT (2.5 N log2 N), the power of 201 bins and the
+    filterbank's nonzero entries; fp32."""
+    frames = 480000 // 160
+    nnz = int(np.count_nonzero(mel.filter_bank()))
+    flops = 8 * frames * (400 + 2.5 * 400 * math.log2(400) + 3 * 201 + 2.0 * nnz)
+    return (*bound(4.0 * 8 * (480000 + frames * 80), flops, "fp32"), flops, nnz)
+
+
+def mel_times(torch, mf, mel, x, parts: bool) -> dict:
+    """Device-only CUDA-event medians of 20, in turns: B2 and its plain
+    version ``mel_power_ref``; with ``parts``, also both log-mel frontends
+    and the plain version taken apart (``ops/mel.py:mel_power_spectrum``):
+    its two table uploads from numpy, the framing and window, ``rfft``, the
+    power, the filterbank matmul, and the whole with its tables already on
+    the card."""
+    runs = {"kernel": lambda: mf.mel_power(x), "plain": lambda: mf.mel_power_ref(x)}
+    if parts:
+        import torch.nn.functional as F
+
+        def uploads():
+            return (torch.from_numpy(mel.hann_window()).to(x.device),
+                    torch.from_numpy(mel.filter_bank().T.copy()).to(x.device))
+
+        win, fb = uploads()
+
+        def frame():
+            pad = F.pad(x[:, None, :], (200, 200), mode="reflect")[:, 0]
+            return pad.unfold(-1, 400, 160)[:, : x.shape[1] // 160] * win
+
+        def placed():
+            spec = torch.fft.rfft(frame(), dim=-1)
+            return (spec.real ** 2 + spec.imag ** 2) @ fb
+
+        fw = frame()
+        spec = torch.fft.rfft(fw, dim=-1)
+        pw = spec.real ** 2 + spec.imag ** 2
+        runs.update({
+            "log_mel_fused": lambda: mf.log_mel_spectrogram_fused(x),
+            "log_mel": lambda: mel.log_mel_spectrogram(x),
+            "uploads": uploads, "frame_window": frame,
+            "rfft": lambda: torch.fft.rfft(fw, dim=-1),
+            "power": lambda: spec.real ** 2 + spec.imag ** 2,
+            "matmul": lambda: pw @ fb, "plain_tables_placed": placed})
+    for f in runs.values():
+        f()
+    times = {n: [] for n in runs}
+    for _ in range(20):  # in turns, so drift hits all alike
+        for n, f in runs.items():
+            times[n] += cuda_ms(torch, f, reps=1, device_only=True)
+    return {n: float(np.median(t)) for n, t in times.items()}
+
+
+def phase_mel(torch, mel, mf, card, usage: dict):
+    """Kernel B2 against its plain version (cuFFT + matmul) at B = 8: its
+    launch shape and ptxas usage, the gates, the times of the kernel and of
+    the plain version's parts."""
     x = mel_inputs(torch)
+    plan = mf.kernel_plan(x.device)
+    print(f"[5 mel] B2 launch: {plan['threads']} threads x {plan['frames']} "
+          f"frames a block, {plan['blocks_per_clip']} blocks a clip "
+          f"({plan['blocks_per_clip'] * x.shape[0]} at B={x.shape[0]}), "
+          f"{plan['smem_bytes']} B of shared memory, {plan['blocks_per_sm']} "
+          f"blocks an SM (occupancy API), {plan['registers']} registers; ptxas "
+          f"(registers, spill store/load bytes) {usage['mel_power_fwd']} "
+          f"[{card}]", flush=True)
     out = mf.mel_power(x)
     torch.cuda.synchronize()
     ref = mf.mel_power_ref(x)
@@ -448,31 +520,26 @@ def phase_mel(torch, mel, mf, card):
              - mel.log_mel_from_power(ref)).abs().max().item()
     check(rel <= MEL_TOL, f"B2: mel power rel err {rel} > {MEL_TOL}")
     check(d_log <= LOG_MEL_TOL, f"B2: log-mel err {d_log} > {LOG_MEL_TOL}")
-    runs = {"kernel": lambda: mf.mel_power(x),
-            "plain": lambda: mf.mel_power_ref(x),
-            "log_mel_fused": lambda: mf.log_mel_spectrogram_fused(x),
-            "log_mel": lambda: mel.log_mel_spectrogram(x)}
-    times = {n: [] for n in runs}
-    for _ in range(20):  # in turns, so drift hits all alike
-        for n, f in runs.items():
-            times[n] += cuda_ms(torch, f, reps=1, device_only=True)
-    med = {n: float(np.median(t)) for n, t in times.items()}
-    # the operations the function needs per frame (not the kernel's dense
-    # DFT): the window, a 400-point real FFT (2.5 N log2 N), the power of
-    # 201 bins and the filterbank's nonzero entries; fp32
-    frames = 480000 // 160
-    nnz = int(np.count_nonzero(mel.filter_bank()))
-    flops = 8 * frames * (400 + 2.5 * 400 * math.log2(400) + 3 * 201 + 2.0 * nnz)
-    b_ms, b_by = bound(4.0 * 8 * (480000 + frames * 80), flops, "fp32")
+    med = mel_times(torch, mf, mel, x, parts=True)
+    b_ms, b_by, flops, nnz = mel_bound(mel)
     print(f"[5 mel] bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP "
           f"with an FFT and {nnz} filterbank nonzeros) [{card}]", flush=True)
     print(f"[5 mel] B2 B=8x480000 (sine, sine+noise, noise, short noise, zero, "
           f"square, DC, DC+noise): max_abs_err={err:.3e}, worst clip "
           f"{rel:.3e} of max|ref| (limit {MEL_TOL}), log-mel max abs err "
-          f"{d_log:.3e} (limit {LOG_MEL_TOL}); kernel {med['kernel']:.4f} ms, "
-          f"mel_power_ref {med['plain']:.4f} ms; log_mel_spectrogram_fused "
+          f"{d_log:.3e} (limit {LOG_MEL_TOL}); kernel {med['kernel']:.4f} ms "
+          f"({b_ms / med['kernel']:.3f} of its bound), mel_power_ref "
+          f"{med['plain']:.4f} ms; log_mel_spectrogram_fused "
           f"{med['log_mel_fused']:.4f} ms, log_mel_spectrogram "
           f"{med['log_mel']:.4f} ms (median of 20) [{card}]", flush=True)
+    print(f"[5 mel] mel_power_ref taken apart (device ms, median of 20): "
+          f"window + filterbank uploads {med['uploads']:.4f}, framing + window "
+          f"{med['frame_window']:.4f}, rfft {med['rfft']:.4f}, power "
+          f"{med['power']:.4f}, filterbank matmul {med['matmul']:.4f} (sum "
+          f"{sum(med[n] for n in ('uploads', 'frame_window', 'rfft', 'power', 'matmul')):.4f}"
+          f"); the whole with its tables already on the card "
+          f"{med['plain_tables_placed']:.4f}, with its uploads {med['plain']:.4f} "
+          f"[{card}]", flush=True)
     return dict(max_abs_err=err, rel_err=rel, log_err=d_log, ms=med["kernel"],
                 plain_ms=med["plain"], bound_ms=b_ms, bound_by=b_by)
 
@@ -487,9 +554,26 @@ def whisper_clips():
     return lengths, wavs16, wavs
 
 
+def busy_ms(events) -> float:
+    """Device-busy ms of profiler events given as (start us, end us, name,
+    kind) tuples: the union of the intervals of device work (kind "device":
+    kernels, memcpys, memsets). A host range that the profiler draws on the
+    device timeline (kind "annotation", e.g. ``Optimizer.step#AdamW.step``)
+    is left out."""
+    busy, end = 0.0, -math.inf
+    for a, b, _, kind in sorted(events):
+        if kind == "device":
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+    return busy / 1e3
+
+
 def device_profile(torch, fn):
-    """One call of fn under torch.profiler: (wall ms, device-busy ms as the
-    union of device intervals, top 5 device ops by summed time in ms)."""
+    """One call of fn under torch.profiler: (wall ms, device-busy ms by
+    :func:`busy_ms`, top 5 device ops by summed time in ms, ms of each host
+    range left out, the busy ms had those ranges counted too). The profiler
+    marks a user annotation on the device timeline with
+    ``FunctionEvent.is_user_annotation``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -499,15 +583,27 @@ def device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    evs = sorted((e.time_range.start, e.time_range.end, e.name)
-                 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end, by_name = 0.0, -1.0, {}
-    for a, b, name in evs:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return wall, busy / 1e3, top
+    evs = [(e.time_range.start, e.time_range.end, e.name,
+            "annotation" if e.is_user_annotation else "device")
+           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_kind = {"device": {}, "annotation": {}}
+    for a, b, name, kind in evs:
+        by_kind[kind][name] = by_kind[kind].get(name, 0.0) + (b - a) / 1e3
+    top = sorted(by_kind["device"].items(), key=lambda kv: -kv[1])[:5]
+    with_ranges = busy_ms([(a, b, n, "device") for a, b, n, _ in evs])
+    return wall, busy_ms(evs), top, by_kind["annotation"], with_ranges
+
+
+def profile_line(busy: float, top, left_out: dict, with_ranges: float,
+                 base_ms: float) -> str:
+    """The profile's numbers as phases 6, 7 and 10 print them; the idle
+    share is of ``base_ms``."""
+    tops = ", ".join(f"{n[:60]} {t:.1f} ms" for n, t in top)
+    outs = ", ".join(f"{n[:60]} {t:.1f} ms" for n, t in left_out.items()) or "none"
+    return (f"device busy {busy:.1f} ms (kernels, memcpys, memsets; host "
+            f"ranges left out: {outs}; {with_ranges:.1f} ms with them), idle "
+            f"share {1 - busy / base_ms if busy else float('nan'):.3f}; top "
+            f"device ops: {tops}")
 
 
 def phase_whisper_features(torch, mel, mf, tws, ta, card):
@@ -561,13 +657,10 @@ def phase_whisper_features(torch, mel, mf, tws, ta, card):
     ex.log_mel = mf.log_mel_spectrogram_fused
     d_plain = rel_diff(outs["f32"], plain)
 
-    wall, busy, top = device_profile(
+    wall, *prof = device_profile(
         torch, lambda: ex.extract(dict(list(wavs.items())[:8]), level="UTT"))
-    top_s = ", ".join(f"{n[:60]} {t:.1f} ms" for n, t in top)
     print(f"[6 whisper] profile of one f32 batch (8 clips): wall {wall:.1f} ms, "
-          f"device busy {busy:.1f} ms, idle share "
-          f"{1 - busy / wall if busy else float('nan'):.3f}; top device ops: "
-          f"{top_s} [{card}]", flush=True)
+          f"{profile_line(*prof, wall)} [{card}]", flush=True)
 
     # card fp32 vs CPU fp32 at full width, 2 + 2 layers of the same weights
     cfg2 = dataclasses.replace(cfg, encoder_layers=2, decoder_layers=2)
@@ -625,13 +718,10 @@ def phase_asr(torch, mf, tws, tasr, tdec, cfg, params, wavs, card):
           f"{(L - 1) / dec_ms * 1e3:.1f} steps/s, "
           f"{B * max_new / dec_ms * 1e3:.1f} generated tokens/s; generated "
           f"lengths {[len(t) for t in toks]} [{card}]", flush=True)
-    wall_d, busy_d, top_d = device_profile(torch, lambda: tdec.greedy_decode(
-        cfg, asr.model, enc, prompt, P, max_new))
-    top_s = ", ".join(f"{n[:60]} {t:.1f} ms" for n, t in top_d)
+    wall_d, *prof = device_profile(
+        torch, lambda: tdec.greedy_decode(cfg, asr.model, enc, prompt, P, max_new))
     print(f"[7 asr] profile of one decode ({L - 1} steps, B = {B}): wall "
-          f"{wall_d:.1f} ms, device busy {busy_d:.1f} ms, idle share "
-          f"{1 - busy_d / wall_d if busy_d else float('nan'):.3f}; top device "
-          f"ops: {top_s} [{card}]", flush=True)
+          f"{wall_d:.1f} ms, {profile_line(*prof, wall_d)} [{card}]", flush=True)
 
     # teacher-forced: the cached steps against the full-sequence decoder
     ids = tdec.greedy_decode(cfg, asr.model, enc, prompt, P, max_new)
@@ -812,11 +902,13 @@ def phase_b3(torch, fc, card):
     di = fc.flash_attention_causal_bwd_prep(out, dout)
     dk, dv = fc.flash_attention_causal_bwd_dkv(q, k, v, seg, dout, lse, di)
     dq = fc.flash_attention_causal_bwd_dq(q, k, v, seg, dout, lse, di)
+    di2 = fc.flash_attention_causal_bwd_prep(out, dout)
     dk2, dv2 = fc.flash_attention_causal_bwd_dkv(q, k, v, seg, dout, lse, di)
     dq2 = fc.flash_attention_causal_bwd_dq(q, k, v, seg, dout, lse, di)
     torch.cuda.synchronize()
-    check(all(bool(torch.equal(a, b)) for a, b in ((dk, dk2), (dv, dv2), (dq, dq2))),
-          "B3 dkv / dq: two launches on the same inputs differ")
+    check(all(bool(torch.equal(a, b)) for a, b in
+              ((di, di2), (dk, dk2), (dv, dv2), (dq, dq2))),
+          "B3 di / dkv / dq: two launches on the same inputs differ")
     r_out, _ = fc.causal_attention_fwd_ref(q, k, v, seg)
     r_di = fc.bwd_prep_ref(out, dout)
     r_dk, r_dv = fc.bwd_dkv_ref(q, k, v, seg, dout, lse, di)
@@ -830,7 +922,7 @@ def phase_b3(torch, fc, card):
     for n, r in rel.items():
         check(r <= B3_KERNEL_TOL[n], f"B3 {n} vs its plain version: {r} of "
               f"max|ref| > {B3_KERNEL_TOL[n]}")
-    del dk2, dv2, dq2, r_out, r_di, r_dk, r_dv, r_dq
+    del di2, dk2, dv2, dq2, r_out, r_di, r_dk, r_dv, r_dq
 
     med = b3_times(torch, fc, B3_LENS, S, plain=True)
     # bytes: every input read once, every output written once; operations:
@@ -850,10 +942,11 @@ def phase_b3(torch, fc, card):
                       library_ms=library.get(n), bound_ms=b_ms, bound_by=b_by)
         print(f"[9 b3] {n}: kernel {med[n]:.4f} ms, plain {med[f'plain_{n}']:.4f} "
               f"ms, library {library.get(n) or float('nan'):.4f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {fl / 1e9:.2f} GFLOP), "
+              f"{b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {fl / 1e9:.2f} GFLOP; "
+              f"the kernel at {b_ms / med[n]:.3f} of it), "
               f"max_abs_err vs plain {err[n]:.3e} = {rel[n]:.3e} of max|ref| "
               f"(limit {B3_KERNEL_TOL[n]}) [{card}]", flush=True)
-    print(f"[9 b3] backward kernels bit-equal across two launches (dq, dk, dv) "
+    print(f"[9 b3] backward kernels bit-equal across two launches (di, dq, dk, dv) "
           f"[{card}]", flush=True)
     b3_line(med, f"B=8 S=512 lens={list(B3_LENS)}", card)
     print(f"[9 b3] plain fwd+bwd {med['plain_fwd_bwd']:.4f} ms [{card}]", flush=True)
@@ -1042,12 +1135,10 @@ def phase_train(torch, fc, ta, tl, tq, tr, card):
     check(all(n == steps * L for n in launches.values()),
           f"B3 launches {launches}, want {steps * L} each")
 
-    wall_p, busy, top = device_profile(torch, lambda: runner.train_step(batch))
-    top_s = ", ".join(f"{n[:60]} {t:.1f} ms" for n, t in top)
+    wall_p, *prof = device_profile(torch, lambda: runner.train_step(batch))
     print(f"[10 train] profile of one step: wall {wall_p:.1f} ms under the "
-          f"profiler ({step_ms:.1f} ms unprofiled), device busy {busy:.1f} ms, "
-          f"idle share {1 - busy / step_ms:.3f} of the unprofiled step; top "
-          f"device ops: {top_s} [{card}]", flush=True)
+          f"profiler ({step_ms:.1f} ms unprofiled), {profile_line(*prof, step_ms)} "
+          f"(idle of the unprofiled step) [{card}]", flush=True)
 
     # executed FLOP per step: torch's counter over the aten ops (no dW is
     # computed for the frozen base, so none is counted) plus B3's products,
@@ -1092,7 +1183,28 @@ def phase_train(torch, fc, ta, tl, tq, tr, card):
           f"eager: {d_grad} of max|eager| (limit {LORA_GRAD_TOL}) [{card}]",
           flush=True)
     check(max(d_grad.values()) <= LORA_GRAD_TOL, f"flash vs eager LoRA grads {d_grad}")
-    del g_flash, g_eager, after1
+
+    # which bf16 path is the farther from an fp32 gradient: a float32 copy of
+    # the model at the same weights, no AMP, eager attention, the same batch
+    ref32 = copy.deepcopy(model).float()
+    set_flash(tl, ref32, False)
+    loss32, _ = ref32({k: torch.from_numpy(np.asarray(v)).to("cuda")
+                       for k, v in batch.items()})
+    loss32.backward()
+    g32 = {n: p.grad.clone() for n, p in ref32.named_parameters() if n in LORA_GRADS}
+    del ref32, loss32
+    torch.cuda.empty_cache()
+    e_flash = max(rel_err(torch, g_flash[n], g32[n]) for n in LORA_GRADS)
+    e_eager = max(rel_err(torch, g_eager[n], g32[n]) for n in LORA_GRADS)
+    check(all(bool(torch.isfinite(g).all()) for g in g32.values()),
+          "fp32 eager LoRA gradients not finite")
+    print(f"[10 train] LoRA gradients of layer 0 against an fp32 eager copy of "
+          f"the model (same weights and batch): bf16 flash {e_flash:.3e}, bf16 "
+          f"eager {e_eager:.3e} of max|fp32| (worst of q, k, v); flash / eager "
+          f"{e_flash / e_eager:.2f}: "
+          f"{'rounding (<= 2)' if e_flash <= 2 * e_eager else 'flash farther: a B3 backward fault'}"
+          f" [{card}]", flush=True)
+    del g_flash, g_eager, g32, after1
 
     # the same steps with the eager attention, from the same weights
     load(start)
@@ -1218,11 +1330,11 @@ run:
 
 
 def b3_times_of(torch, root: str) -> int:
-    """Phase 9's bf16 timing lines (S 512 and S 1024) and phase 2's bf16 B1
-    line (kernel, SDPA with the key mask, bound) for the port in the
-    checkout at ``root``, e.g. an earlier commit unpacked beside this one,
-    so two versions of the attention kernels can be compared within one
-    call."""
+    """Phase 9's bf16 timing lines (S 512 and S 1024), phase 2's bf16 B1
+    line (kernel, SDPA with the key mask, bound) and phase 5's B2 line
+    (kernel, plain version, bound) for the port in the checkout at
+    ``root``, e.g. an earlier commit unpacked beside this one, so two
+    versions of the kernels can be compared within one call."""
     sys.path.insert(0, os.path.abspath(root))
     from mertools_tpu_torch.ops import flash_attention as fa
     from mertools_tpu_torch.ops import flash_attention_causal as fc
@@ -1239,6 +1351,14 @@ def b3_times_of(torch, root: str) -> int:
     print(f"[b1 times] bf16 B,T,nh,hd={B1_SHAPE} (device ms, median of 20): "
           f"kernel {med['kernel']:.4f}, SDPA with the key mask "
           f"{med['library']:.4f}; bound {b_ms:.4f} by {b_by} [{card}]", flush=True)
+    from mertools_tpu_torch.ops import mel
+    from mertools_tpu_torch.ops import mel_fused as mf
+
+    med = mel_times(torch, mf, mel, mel_inputs(torch), parts=False)
+    b_ms, b_by, _, _ = mel_bound(mel)
+    print(f"[b2 times] B=8x480000 (device ms, median of 20): kernel "
+          f"{med['kernel']:.4f}, mel_power_ref {med['plain']:.4f}; bound "
+          f"{b_ms:.4f} by {b_by} [{card}]", flush=True)
     return 0
 
 
@@ -1279,10 +1399,11 @@ def main(argv: list[str]) -> int:
     print(f"[1 device] {kind}; nvidia-smi: {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     path, secs, log = _kernels.build()
+    usage = check_no_spills(log)
     print(f"[1 device] kernels {os.path.relpath(path, HERE)}: built in "
           f"{secs:.1f} s{'' if secs else ' (reused, with its build log)'}; "
-          f"ptxas -v (registers, spill store/load bytes): "
-          f"{check_no_spills(log)} [{card}]", flush=True)
+          f"ptxas -v (registers, spill store/load bytes): {usage} [{card}]",
+          flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1292,7 +1413,7 @@ def main(argv: list[str]) -> int:
     del ex_bf16
     torch.cuda.empty_cache()
 
-    mres = phase_mel(torch, mel, mf, card)
+    mres = phase_mel(torch, mel, mf, card, usage)
     cfg, params, wavs, feat_launches, _ = phase_whisper_features(
         torch, mel, mf, tws, ta, card)
     asr_launches, _ = phase_asr(torch, mf, tws, tasr, tdec, cfg, params, wavs, card)

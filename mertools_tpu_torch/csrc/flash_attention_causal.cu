@@ -18,7 +18,8 @@
 //         tile (the longest walk) first; a loop over the key tiles up to the
 //         diagonal with the online softmax; writes O and the row logsumexp
 //         lse = m + log(l) in fp32, natural units.
-//   prep: di[b, h, i] = sum_d dO . O (fp32), one warp per row.
+//   prep: di[b, h, i] = sum_d dO . O (fp32); one block per (32 tokens, 8
+//         heads, b) reads the rows in memory order with 16-byte loads.
 //   dkv : dK and dV, each the sum over the kv head's group of query heads.
 //         bf16: one block per (64-key tile, slice of the group's heads, b),
 //         key tile 0 (the longest walk) first; the blocks of one kv head
@@ -78,9 +79,6 @@ constexpr int kFmaThreads = 256;  // fp32: 16 x 16 threads, 4 rows each
 struct Str {  // element strides of a (B, S, heads, hd) tensor
   int b, t, h;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // ---------------------------------------------------------------- fp32, FMA
 
@@ -925,24 +923,91 @@ dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
 
 // ----------------------------------------------------------- di pre-pass
 
-// di[(b * nh + h) * S + t] = sum_d o[b, t, h, d] * dout[b, t, h, d] in fp32;
-// one warp per row, 8 rows per block.
-template <typename T, int HD>
-__global__ void __launch_bounds__(256)
-bwd_prep(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ di, int B,
-         int S, int nh, Str so, Str sdo) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * 8 + warp;
-  if (row >= (long long)B * nh * S) return;
-  const int t = (int)(row % S), h = (int)((row / S) % nh), b = (int)(row / ((long long)S * nh));
-  const T* op = o + (long long)b * so.b + (long long)t * so.t + (long long)h * so.h;
-  const T* dp = dout + (long long)b * sdo.b + (long long)t * sdo.t + (long long)h * sdo.h;
+// di[(b * nh + h) * S + t] = sum_d o[b, t, h, d] * dout[b, t, h, d] in fp32,
+// the library's XLA reduction before its two backward kernels
+// (flash_attention.py:273). A pure read: at the training shape it moves
+// 33.5 MB of O and dO and writes 0.5 MB of di, 10.2 us at 3.35 TB/s, so the
+// design is about the bytes in flight and the order they are read in:
+//  * one block per (32 tokens, 8 heads, b); its rows are (token, head)
+//    pairs with the head fastest, so where a token's heads are adjacent
+//    (stride h == hd, as the projections give them) consecutive rows are
+//    consecutive in memory;
+//  * a row is read by a group of HD * sizeof(T) / 16 lanes (8 at hd 64 in
+//    bf16, 16 at hd 128), each with 16-byte non-coherent loads (8 bf16 or 4
+//    fp32 values); a lane group takes 4 rows at once, so every thread has 4
+//    loads of each tensor in flight before it multiplies;
+//  * each lane sums its products in fp32 in index order, then the lane
+//    group adds by __shfl_xor_sync in a fixed order: di is bit-equal from
+//    launch to launch;
+//  * di is staged in shared memory as [head][token] and written as one
+//    128-byte run of 32 tokens per head.
+// 512 blocks at the training shape (B 8, S 512, nh 32), about 4 an SM, all
+// resident at once.
+constexpr int kPrepTokens = 32, kPrepHeads = 8, kPrepRows = 4;
+constexpr int kPrepThreads = kPrepTokens * kPrepHeads;  // one thread per di of the tile
+
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// sum of the products of two 16-byte vectors of T, in fp32, in index order
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
   float acc = 0.0f;
 #pragma unroll
-  for (int d = lane; d < HD; d += 32) acc = fmaf(to_f(op[d]), to_f(dp[d]), acc);
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 2) {  // two bf16 a word, the lower first
+      acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
+      acc = fmaf(__uint_as_float(x[i] & 0xffff0000u), __uint_as_float(y[i] & 0xffff0000u), acc);
+    } else {
+      acc = fmaf(__uint_as_float(x[i]), __uint_as_float(y[i]), acc);
+    }
+  }
+  return acc;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kPrepThreads)
+bwd_prep(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ di, int S,
+         int nh, Str so, Str sdo) {
+  constexpr int VEC = 16 / sizeof(T);   // values a 16-byte load
+  constexpr int LG = HD / VEC;          // lanes a row
+  constexpr int NG = kPrepThreads / LG; // lane groups a block
+  constexpr int ROWS = kPrepTokens * kPrepHeads;
+  static_assert(32 % LG == 0 && ROWS % (NG * kPrepRows) == 0, "whole rows, whole passes");
+  __shared__ float s_di[kPrepHeads][kPrepTokens + 1];
+
+  const int j = threadIdx.x % LG, g = threadIdx.x / LG;
+  const int h0 = blockIdx.x * kPrepHeads, t0 = blockIdx.y * kPrepTokens;
+  const T* ob = o + (long long)blockIdx.z * so.b + j * VEC;
+  const T* db = dout + (long long)blockIdx.z * sdo.b + j * VEC;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) di[row] = acc;
+  for (int r0 = 0; r0 < ROWS; r0 += NG * kPrepRows) {
+    uint4 va[kPrepRows], vb[kPrepRows];
+#pragma unroll
+    for (int i = 0; i < kPrepRows; ++i) {
+      const int r = r0 + g + NG * i;
+      const int t = t0 + r / kPrepHeads, h = h0 + r % kPrepHeads;
+      va[i] = vb[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (t < S && h < nh) {
+        va[i] = ldg16(ob + (long long)t * so.t + (long long)h * so.h);
+        vb[i] = ldg16(db + (long long)t * sdo.t + (long long)h * sdo.h);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPrepRows; ++i) {
+      float acc = dot16<T>(va[i], vb[i]);
+#pragma unroll
+      for (int off = LG / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      const int r = r0 + g + NG * i;
+      if (j == 0) s_di[r % kPrepHeads][r / kPrepHeads] = acc;
+    }
+  }
+  __syncthreads();
+  const int hl = threadIdx.x / kPrepTokens, tl = threadIdx.x % kPrepTokens;
+  if (h0 + hl < nh && t0 + tl < S)
+    di[((long long)blockIdx.z * nh + h0 + hl) * S + t0 + tl] = s_di[hl][tl];
 }
 
 // ----------------------------------------------------------------- launch
@@ -1047,14 +1112,13 @@ cudaError_t dkv_hd(bool bf, const void* q, const void* k, const void* v, const i
 template <int HD>
 cudaError_t prep_hd(bool bf, const void* o, const void* dout, float* di, int B, int S, int nh,
                     const int* s, cudaStream_t st) {
-  const long long rows = (long long)B * nh * S;
-  const unsigned blocks = (unsigned)((rows + 7) / 8);
+  const dim3 grid((nh + kPrepHeads - 1) / kPrepHeads, (S + kPrepTokens - 1) / kPrepTokens, B);
   if (bf)
-    bwd_prep<bf16, HD><<<blocks, 256, 0, st>>>((const bf16*)o, (const bf16*)dout, di, B, S, nh,
-                                               str(s, 0), str(s, 1));
+    bwd_prep<bf16, HD><<<grid, kPrepThreads, 0, st>>>((const bf16*)o, (const bf16*)dout, di, S,
+                                                      nh, str(s, 0), str(s, 1));
   else
-    bwd_prep<float, HD><<<blocks, 256, 0, st>>>((const float*)o, (const float*)dout, di, B, S,
-                                                nh, str(s, 0), str(s, 1));
+    bwd_prep<float, HD><<<grid, kPrepThreads, 0, st>>>((const float*)o, (const float*)dout, di,
+                                                       S, nh, str(s, 0), str(s, 1));
   return cudaGetLastError();
 }
 
@@ -1068,7 +1132,7 @@ bool shapes_ok(int B, int S, int nh, int nkv) {
 // hd) with a contiguous head dimension; `strides` is a host array of element
 // strides (b, t, h) per tensor, in the order the arguments list the tensors.
 // seg is int32 (B, S) contiguous, lse and di fp32 (B, nh, S) contiguous, all on
-// the device. For bf16 every row starts on a 16-byte boundary. Each launches
+// the device. Every row starts on a 16-byte boundary. Each launches
 // on `stream`, does not synchronise, and returns the launch's cudaError_t.
 
 // q (B,S,nh,hd), k, v (B,S,nkv,hd) -> o (B,S,nh,hd), lse. strides: q, k, v, o.

@@ -25,6 +25,7 @@ from dataclasses import dataclass, field
 import torch
 from torch import nn
 
+from ..core.device import resolve_device
 from . import llm as _llm
 from . import qformer as _qformer
 from .llm import LLM, Linear, LLMConfig, lm_loss
@@ -408,13 +409,15 @@ def state_dict_from_flax(cfg: AffectGPTConfig, params) -> dict:
     return sd
 
 
-def build(cfg: AffectGPTConfig, device=None, seed: int | None = 0) -> AffectGPT:
+def build(cfg: AffectGPTConfig, device="cuda", seed: int | None = 0) -> AffectGPT:
     """An :class:`AffectGPT` on ``device`` with parameters drawn by
     :func:`llm.init_weights` from a generator seeded with ``seed`` on that
-    device (None leaves them uninitialised, for a state dict to fill)."""
-    model = AffectGPT(cfg, device)
+    device (None leaves them uninitialised, for a state dict to fill).
+    ``device`` is the card unless the caller asks for ``"cpu"``; a host
+    without a card raises rather than falling back to the CPU."""
+    dev = resolve_device(device, fp32=False)   # TF32 stays as the caller set it
+    model = AffectGPT(cfg, dev)
     if seed is not None:
-        dev = torch.device(device) if device is not None else torch.device("cpu")
         _llm.init_weights(model, torch.Generator(dev).manual_seed(seed))
     return model
 

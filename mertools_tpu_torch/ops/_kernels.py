@@ -92,8 +92,9 @@ def build() -> tuple[Path, float, str]:
 SIGNATURES = {
     "mt_flash_attention_fwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 18
                                + [ctypes.c_void_p]),
-    "mt_mel_power_fwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    "mt_mel_power_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                          + [ctypes.c_void_p]),
+    "mt_mel_power_fwd_plan": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
     # B3: tensors, sizes, dtype flag and device, a host int array of
     # (b, t, h) strides per tensor, the stream
     "mt_flash_attention_causal_fwd": (

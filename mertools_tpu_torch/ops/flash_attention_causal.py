@@ -117,10 +117,11 @@ def _check_rows(name, t):
                          f"strides {t.stride()}")
     if max(t.stride()) >= 2 ** 31:
         raise ValueError(f"{name} strides {t.stride()} exceed int32")
-    # the bf16 kernels load rows as 16-byte vectors
-    if t.dtype == torch.bfloat16 and (
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
-        raise ValueError(f"bf16 {name} rows must start on 16-byte "
+    # the bf16 kernels and the di pre-pass (bf16 and fp32) load rows as
+    # 16-byte vectors
+    if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                for st in t.stride()[:3]):
+        raise ValueError(f"{t.dtype} {name} rows must start on 16-byte "
                          f"boundaries (strides {t.stride()})")
 
 

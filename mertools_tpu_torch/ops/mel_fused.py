@@ -5,7 +5,9 @@ computes the windowed DFT of every 400-sample frame as three hop-shifted
 row slices times banded cos/sin matrices, then the power and the mel
 filterbank, without materialising the framed signal. The CUDA kernel
 (``csrc/mel_power_fwd.cu``) computes the same function with its own
-blocking: reflect padding by index, a 400-entry twiddle table, fp32 FMAs.
+design: reflect padding by index, a 400-point real FFT in fp32 (a 200-point
+complex FFT and a split), and the mel product over each filter's band
+(:func:`mel_bands`).
 
 :func:`mel_power` launches the kernel for CUDA tensors (or raises) and takes
 the plain version :func:`mel_power_ref` only for CPU tensors. Both are fixed,
@@ -47,17 +49,44 @@ def check_kernel_args(wav: torch.Tensor, n_mels: int = N_MELS) -> None:
         raise ValueError(f"wav must be float32, got {wav.dtype}")
     if not wav.is_contiguous():
         raise ValueError(f"wav must be contiguous, strides {wav.stride()}")
+    if wav.data_ptr() % 8:
+        raise ValueError("wav must start on an 8-byte boundary (the kernel "
+                         "reads sample pairs)")
+
+
+def mel_bands(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The banded form of an (n_mels, n_bins) filterbank that the kernel's
+    mel product runs over: int32 (3, n_mels) rows of each mel's first bin
+    ``lo``, band length ``n`` (from its first to its last nonzero; 0 for an
+    all-zero filter) and the offset of its weights, and the fp32 weights
+    ``fb[m, lo:lo + n]``, band after band. Every term outside a band is an
+    exact zero, so the product is the same function as the dense one."""
+    lo, n, off, w = [], [], [], []
+    for row in fb:
+        nz = np.flatnonzero(row)
+        a, b = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        lo.append(a)
+        n.append(b - a)
+        off.append(sum(len(x) for x in w))
+        w.append(row[a:b])
+    return (np.array([lo, n, off], np.int32),
+            np.concatenate(w).astype(np.float32))
 
 
 @functools.cache
 def _tables(device: torch.device) -> tuple[torch.Tensor, ...]:
     """The kernel's constants on ``device``: (cos, sin)(2 pi m / 400)
     interleaved, computed in float64 and rounded to fp32; the Hann window;
-    the (201, 80) filterbank."""
+    the filterbank's bands and their weights (:func:`mel_bands`)."""
     ang = 2.0 * np.pi * np.arange(N_FFT) / N_FFT
     twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (twiddle, hann_window(), filter_bank(N_MELS).T))
+                 for a in (twiddle, hann_window(), *mel_bands(filter_bank(N_MELS))))
+
+
+def _cuda_device(device: torch.device) -> torch.device:
+    return torch.device("cuda", device.index if device.index is not None
+                        else torch.cuda.current_device())
 
 
 def mel_power(wav: torch.Tensor, n_mels: int = N_MELS) -> torch.Tensor:
@@ -73,15 +102,14 @@ def mel_power(wav: torch.Tensor, n_mels: int = N_MELS) -> torch.Tensor:
         raise ValueError(f"mel_power runs on CPU or CUDA, not {wav.device}")
     from ._kernels import library
 
-    device = torch.device("cuda", wav.device.index if wav.device.index is not None
-                          else torch.cuda.current_device())
-    twiddle, window, fb = _tables(device)
+    device = _cuda_device(wav.device)
+    twiddle, window, bands, weights = _tables(device)
     B = wav.shape[0]
     out = torch.empty((B, N_FRAMES, N_MELS), dtype=torch.float32, device=device)
     rc = library().mt_mel_power_fwd(
-        wav.data_ptr(), twiddle.data_ptr(), window.data_ptr(), fb.data_ptr(),
-        out.data_ptr(), B, CHUNK_SAMPLES, device.index,
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        wav.data_ptr(), twiddle.data_ptr(), window.data_ptr(), bands.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), B, CHUNK_SAMPLES, weights.numel(),
+        device.index, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"mel_power_fwd launch failed: cudaError {rc}")
     mel_power.launches += 1
@@ -89,6 +117,23 @@ def mel_power(wav: torch.Tensor, n_mels: int = N_MELS) -> torch.Tensor:
 
 
 mel_power.launches = 0
+
+
+def kernel_plan(device: torch.device) -> dict:
+    """The kernel's launch shape on the CUDA ``device`` for 30 s clips:
+    threads and frames a block, blocks a clip, dynamic shared memory bytes,
+    blocks an SM (CUDA's occupancy API) and registers a thread."""
+    from ._kernels import library
+
+    device = _cuda_device(torch.device(device))
+    weights = _tables(device)[3]
+    plan = (ctypes.c_int * 6)()
+    rc = library().mt_mel_power_fwd_plan(CHUNK_SAMPLES, weights.numel(),
+                                         device.index, plan)
+    if rc != 0:
+        raise RuntimeError(f"mel_power_fwd plan failed: cudaError {rc}")
+    return dict(zip(("threads", "frames", "blocks_per_clip", "smem_bytes",
+                     "blocks_per_sm", "registers"), plan))
 
 
 def log_mel_spectrogram_fused(wav: torch.Tensor) -> torch.Tensor:

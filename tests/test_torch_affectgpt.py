@@ -158,3 +158,16 @@ def test_generate_step_embeds_and_stream_plan(case):
         tc = dataclasses.replace(tcfg, face_or_frame=mode)
         for seg in ta.SEGMENTS_BY_MODE[mode]:
             assert tc.segment_tokens(seg) == c.segment_tokens(seg)
+
+
+def test_build_defaults_to_the_card(monkeypatch):
+    """build() builds and initialises on the card unless asked for the CPU;
+    on a host without a card the default raises instead of falling back."""
+    tcfg = ta.config_from_dict(dataclasses.asdict(CONFIGS["legacy"]))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ta.build(tcfg)
+    m = ta.build(tcfg, "cpu", seed=3)
+    assert {p.device.type for p in m.parameters()} == {"cpu"}
+    again = ta.build(tcfg, "cpu", seed=3)
+    assert all(torch.equal(a, b) for a, b in zip(m.parameters(), again.parameters()))

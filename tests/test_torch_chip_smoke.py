@@ -30,6 +30,7 @@ def _entry(sym, regs, spill=0):
 
 MEL = ("ptxas info    : Compiling entry function 'mel_power_fwd' for 'sm_90a'\n"
        "ptxas info    : Used 210 registers, 384 bytes cmem[0]\n")
+MEL_SYM = "_ZN49_GLOBAL__N__ce112689_16_mel_power_fwd_cu_34e96c1a13mel_power_fwdEPKfPK6float2S1_PKiS1_Pfii"
 # every wgmma kernel at both head dims: (entry, registers)
 WGMMA = [(FWD.format(64, 3), 136), (FWD.format(128, 2), 196),
          (DKV.format(64), 130), (DKV.format(128), 216),
@@ -62,6 +63,8 @@ def _spilled(sym, regs):
     (_spilled(B1.format(64, 2), 125), "bidir_fwd_wgmma"),
     (_spilled(B1.format(128, 2), 162), "bidir_fwd_wgmma"),
     (CLEAN.replace(_entry(B1.format(64, 2), 125), ""), "bidir_fwd_wgmma"),
+    (CLEAN.replace(MEL, _entry(MEL_SYM, 64, 8)), "mel_power_fwd"),
+    (CLEAN.replace(MEL, ""), "mel_power_fwd"),
 ])
 def test_phase1_spill_check_fails_on_a_spill_or_a_missing_kernel(log, match):
     assert len(chip_smoke.check_no_spills(CLEAN)) == len(WGMMA) + 1
@@ -93,6 +96,18 @@ def test_a_reused_library_gives_phase1_its_build_log(tmp_path, monkeypatch):
     assert _kernels.build()[2] == CLEAN and len(runs) == 4
     assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
         [path.name, path.with_suffix(".log").name])
+
+
+def test_busy_sum_leaves_out_host_annotations():
+    """Phases 6, 7 and 10 sum the union of kernels, memcpys and memsets: a
+    user annotation spanning two kernels (as Optimizer.step#AdamW.step
+    does) adds nothing, overlapping kernels count once."""
+    kernels = [(10.0, 30.0, "k1", "device"), (20.0, 50.0, "k2", "device"),
+               (60.0, 70.0, "Memcpy HtoD", "device")]
+    ann = (0.0, 100.0, "Optimizer.step#AdamW.step", "annotation")
+    assert chip_smoke.busy_ms(kernels) == pytest.approx(0.05)
+    assert chip_smoke.busy_ms([ann, *kernels]) == chip_smoke.busy_ms(kernels)
+    assert chip_smoke.busy_ms([ann]) == 0.0
 
 
 def test_exits_without_a_result_on_a_host_without_a_card(capsys, monkeypatch):

@@ -151,6 +151,8 @@ def _ok_args(B=2, S=8, nh=4, nkv=2, hd=64, dtype=torch.float32):
     ("seg_dtype", "seg"),
     ("seg_shape", "seg"),
     ("bf16_offset", "16-byte"),
+    ("fp32_offset", "16-byte"),
+    ("fp32_stride", "16-byte"),
 ])
 def test_check_kernel_args_rejects(case, match):
     q, k, v, seg = _ok_args()
@@ -176,6 +178,10 @@ def test_check_kernel_args_rejects(case, match):
     elif case == "bf16_offset":
         q, k, v, seg = _ok_args(dtype=torch.bfloat16)
         q = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+    elif case == "fp32_offset":
+        q = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+    elif case == "fp32_stride":   # heads 66 floats apart: rows 8-byte aligned
+        q = torch.zeros(2, 8, 4, 66)[..., :64]
     with pytest.raises(ValueError, match=match):
         fc.check_kernel_args(q, k, v, seg)
 

@@ -121,9 +121,9 @@ def test_cuda_tensors_never_fall_back(cuda):
                                               device=cuda))
 
 
-# B2: max |kernel - ref| / max |ref| per clip. Both sides are fp32; the kernel
-# sums the dense DFT where the reference runs cuFFT, so they differ by
-# rounding only (~1e-6 of the clip's peak power at these inputs)
+# B2: max |kernel - ref| / max |ref| per clip. Both sides are fp32 FFTs
+# (the kernel's own, the reference's cuFFT), so they differ by rounding only
+# (~5e-7 of the clip's peak power at these inputs)
 MEL_TOL = 1e-5
 LOG_MEL_TOL = 1e-4  # abs, in the (log10 + 4) / 4 domain
 
@@ -152,6 +152,43 @@ def test_mel_kernel_matches_plain(cuda):
     assert torch.isfinite(out).all()
     assert torch.equal(out[2], torch.zeros_like(out[2]))  # exact zeros
     for b in (0, 1, 3, 4):
+        rel = ((out[b] - ref[b]).abs().max() / ref[b].abs().max()).item()
+        assert rel <= MEL_TOL, (b, rel)
+    d_log = (log_mel_from_power(out) - log_mel_from_power(ref)).abs().max()
+    assert d_log.item() <= LOG_MEL_TOL, d_log.item()
+
+
+def _mel_edge_clips(B):
+    """B clips cycling through: impulses at the first and last sample and
+    around frame (160-sample) and block (32-frame) edges, a full-scale +-1
+    square wave, a DC clip, a zero clip and noise."""
+    n = 480000
+    t = np.arange(n) / 16000.0
+    rng = np.random.default_rng(5)
+    imp = np.zeros(n, np.float32)
+    for i in (0, 1, 159, 160, 161, 399, 400, 5119, 5120, 5121, 93 * 5120 - 1,
+              93 * 5120, n - 161, n - 160, n - 2, n - 1):
+        imp[i] = 1.0
+    kinds = [imp, np.sign(np.sin(2 * np.pi * 200 * t + 0.1)).astype(np.float32),
+             np.full(n, 0.7, np.float32), np.zeros(n, np.float32),
+             (rng.normal(size=n) * 0.1).astype(np.float32)]
+    return np.stack([kinds[b % len(kinds)] for b in range(B)])
+
+
+@pytest.mark.parametrize("B", [1, 3, 13])
+def test_mel_kernel_edges_and_partial_grid(cuda, B):
+    """Clip counts that leave the grid's tail partial, and inputs that hit
+    the reflect padding, the frame and block edges and full scale; the zero
+    clip exactly zero."""
+    wav = torch.from_numpy(_mel_edge_clips(B)).to(cuda)
+    out = mel_power(wav)
+    torch.cuda.synchronize()
+    ref = mel_power_ref(wav)
+    assert torch.isfinite(out).all()
+    for b in range(B):
+        if b % 5 == 3:
+            assert torch.equal(out[b], torch.zeros_like(out[b]))
+            continue
         rel = ((out[b] - ref[b]).abs().max() / ref[b].abs().max()).item()
         assert rel <= MEL_TOL, (b, rel)
     d_log = (log_mel_from_power(out) - log_mel_from_power(ref)).abs().max()
@@ -301,6 +338,37 @@ def test_b3_ragged_length_not_a_tile_multiple(cuda):
     dq = fc.flash_attention_causal_bwd_dq(q, k, v, seg, dout, lse, di)
     assert _rel(dk, rdk) <= 1e-4 and _rel(dv, rdv) <= 1e-4
     assert _rel(dq, fc.bwd_dq_ref(q, k, v, seg, dout, lse, di)) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,nh", [(64, 32), (128, 28)])
+@pytest.mark.parametrize("S", [97, 512])
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_b3_di_matches_plain_and_is_deterministic(cuda, dtype, hd, nh, S, layout):
+    """The di pre-pass against its plain version at the training head
+    counts, S not a multiple of its 32-token tiles, on contiguous tensors
+    and on strided views (O with its heads 2 hd apart, dO in the
+    (B, nh, S, hd) layout transposed), and bit for bit across launches."""
+    from mertools_tpu_torch.ops import flash_attention_causal as fc
+
+    rng = np.random.default_rng(6)
+    B = 3
+    if layout == "contiguous":
+        o, dout = (torch.from_numpy(rng.normal(size=(B, S, nh, hd)).astype(
+            np.float32)).to(cuda, dtype) for _ in range(2))
+    else:
+        o = torch.from_numpy(rng.normal(size=(B, S, nh, 2 * hd)).astype(
+            np.float32)).to(cuda, dtype)[..., :hd]
+        dout = torch.from_numpy(rng.normal(size=(B, nh, S, hd)).astype(
+            np.float32)).to(cuda, dtype).transpose(1, 2)
+    before = fc.flash_attention_causal_bwd_prep.launches
+    di = fc.flash_attention_causal_bwd_prep(o, dout)
+    di2 = fc.flash_attention_causal_bwd_prep(o, dout)
+    torch.cuda.synchronize()
+    assert fc.flash_attention_causal_bwd_prep.launches == before + 2
+    assert di.shape == (B, nh, S) and di.is_contiguous()
+    assert _rel(di, fc.bwd_prep_ref(o, dout)) <= 1e-5
+    assert torch.equal(di, di2)
 
 
 def test_b3_cuda_tensors_never_fall_back(cuda):

@@ -79,12 +79,34 @@ def test_shared_tail_is_the_whole_fft_path(wavs):
     (torch.zeros(2, N, dtype=torch.float64), 80, "float32"),
     (torch.zeros(N, 2).T, 80, "contiguous"),
     (torch.zeros(2, N), 128, "128"),
+    (torch.zeros(2 * N + 1)[1:].view(2, N), 80, "8-byte"),
 ])
 def test_check_kernel_args_rejects(wav, n_mels, match):
     with pytest.raises(ValueError, match=match):
         tf.check_kernel_args(wav, n_mels)
     with pytest.raises(ValueError, match=match):
         tf.mel_power(wav, n_mels)
+
+
+def test_mel_bands_cover_every_nonzero_and_nothing_else():
+    """The kernel's banded mel product: each filter's band runs from its
+    first to its last nonzero bin, holds no zero, and the weights rebuild
+    the filterbank exactly, so the product is the dense one's function."""
+    fb = tm.filter_bank()
+    bands, w = tf.mel_bands(fb)
+    lo, n, off = bands
+    assert bands.dtype == np.int32 and w.dtype == np.float32
+    assert n.sum() == np.count_nonzero(fb) == len(w)
+    assert (off == np.concatenate([[0], np.cumsum(n)[:-1]])).all()
+    rebuilt = np.zeros_like(fb)
+    for m in range(fb.shape[0]):
+        rebuilt[m, lo[m]:lo[m] + n[m]] = w[off[m]:off[m] + n[m]]
+        assert (w[off[m]:off[m] + n[m]] != 0).all()
+    np.testing.assert_array_equal(rebuilt, fb)
+    # an all-zero filter gets an empty band
+    z = fb.copy()
+    z[3] = 0
+    assert tf.mel_bands(z)[0][1, 3] == 0 and len(tf.mel_bands(z)[1]) == len(w) - n[3]
 
 
 def test_cpu_tensor_takes_plain_version_without_a_launch():

@@ -114,7 +114,7 @@ def test_weight_decay_reaches_every_trainable_leaf(tmp_path):
     trun = tr.Runner(tr.RunnerConfig(init_lr=1e-2, warmup_steps=0,
                                      weight_decay=0.05,
                                      output_dir=str(tmp_path / "wd")),
-                     ta.build(tcfg, seed=3))
+                     ta.build(tcfg, "cpu", seed=3))
     a = trun.model.llm.layers[0].self_attn.q_proj.lora_A
     before = a.detach().clone()
     trun.train_step(batches[0])
@@ -131,7 +131,7 @@ def test_checkpoint_round_trip_and_bf16_frozen_base(tmp_path):
     saved = trun.trainable_state()
     assert set(saved) == {n for n, p in trun.model.named_parameters()
                           if p.requires_grad}
-    fresh = ta.build(tcfg, seed=7)
+    fresh = ta.build(tcfg, "cpu", seed=7)
     r2 = tr.Runner(tr.RunnerConfig(output_dir=str(tmp_path / "r2"),
                                    compute_dtype="bf16"), fresh)
     assert r2.load_checkpoint(path) == 0
