@@ -6,9 +6,10 @@
 Drives the port's paths through the entry points a user calls, at full
 published width with seeded random weights — HuBERT-large audio feature
 extraction (hidden 1024, 24 layers, 16 heads), Whisper-large-v2 features and
-ASR (d_model 1280, 32 + 32 layers, 20 heads, vocab 51865), and AffectGPT
-LoRA training at TinyLlama-1.1B width (hidden 2048, 22 layers, 32 heads, 4
-KV heads, vocab 32000) — and checks them:
+ASR (d_model 1280, 32 + 32 layers, 20 heads, vocab 51865), AffectGPT LoRA
+training at TinyLlama-1.1B width (hidden 2048, 22 layers, 32 heads, 4 KV
+heads, vocab 32000), and the MERBench fusion trainer (attention fusion,
+hidden 256, 5-fold CV) at MER2023's split sizes — and checks them:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
@@ -45,7 +46,17 @@ KV heads, vocab 32000) — and checks them:
    attention, and fp32 on the card against the CPU at full width with 2
    LLM layers;
 11. CLI: ``train_mllm`` on synthetic features (best-setup stream mode),
-   2 epochs, then resumed for a third.
+   2 epochs, then resumed for a third;
+12. the fusion trainer: (a) ``extract_audio`` writes HuBERT-large UTT
+   features of 40 wavs and ``main_release`` trains attention fusion on them
+   (hidden 256, 5 folds), on the card and on the CPU, test1 logits compared;
+   (b) ``main_release`` at MER2023's split sizes (3373 train, test1/2/3 of
+   411/412/834) on seeded class-separable UTT features at 1024/1024/768,
+   10 epochs: cv WAF, seconds a fold and an epoch, steps/s, and the device
+   idle share of one epoch from a profile; (c) ``run_cv`` on frm_align
+   features with LSTM encoders, card against CPU from the same weights (a
+   step's gradients, a trained model's test logits) beside how far two
+   trainings drift. It launches none of the port's kernels.
 
     python3 chip_smoke.py --b3-times DIR
 
@@ -1329,6 +1340,320 @@ run:
           f"launches {launches}; wrote {made} [{card}]", flush=True)
 
 
+# --------------------------------------------------- fusion trainer (phase 12)
+# MER2023's published split sizes (train, test1, test2, test3) and the
+# published widths of the features the MERBench recipe fuses
+MER2023_SPLITS = {"train": 3373, "test1": 411, "test2": 412, "test3": 834}
+FUSION_FEATURES = (("chinese-hubert-large-UTT", 1024),
+                   ("chinese-macbert-large-UTT", 1024),
+                   ("clip-vit-large-patch14-UTT", 768))
+FUSION_TOL = 1e-4   # card vs CPU logits, max |card - cpu| / max |cpu|
+
+
+def fusion_flags(features_root, label_path, save_root, feats, *extra):
+    """``main_release`` flags for MER2023 with attention fusion on UTT
+    features ``feats`` = (audio, text, video)."""
+    return ["--dataset=MER2023", f"--audio_feature={feats[0]}",
+            f"--text_feature={feats[1]}", f"--video_feature={feats[2]}",
+            "--feat_type=utt", "--model=attention", "--seed=0",
+            f"--features_root={features_root}", f"--label_path={label_path}",
+            f"--save_root={save_root}", *extra]
+
+
+def fusion_labels(rng, names: dict) -> tuple[dict, dict]:
+    """Seeded label corpora for ``names[split]``: one of the 6 MER emotions
+    a clip and a valence that follows it, with noise. Returns (corpora, the
+    emotion indices a split)."""
+    from mertools_tpu_torch.core.globals_mer import EMOS_MER
+
+    corpora, emos = {}, {}
+    for split, ns in names.items():
+        emos[split] = rng.integers(0, 6, len(ns))
+        vals = (emos[split] - 2.5) / 2.5 + 0.3 * rng.normal(size=len(ns))
+        corpora[split] = {n: {"emo": EMOS_MER[e], "val": float(v)}
+                          for n, e, v in zip(ns, emos[split], vals)}
+    return corpora, emos
+
+
+def fusion_card_vs_cpu(card_res, cpu_res, split: str) -> float:
+    """max |card - cpu| / max |cpu| over a test split's fold-averaged
+    emotion logits and valence predictions."""
+    return max(float(np.abs(card_res.test_results[split][k]
+                            - cpu_res.test_results[split][k]).max()
+                     / np.abs(cpu_res.test_results[split][k]).max())
+               for k in ("emoprobs", "valpreds"))
+
+
+def phase_fusion_hubert(torch, card, dev: str = "cuda"):
+    """12a: HuBERT-large UTT features from the extraction CLI, then the
+    fusion trainer's CLI on them (the one feature as audio, text and video:
+    "unimodal"), on the card and on the CPU."""
+    from mertools_tpu_torch.cli import extract_audio, main_release
+    from mertools_tpu_torch.core.globals_mer import feature_dir_name
+    from mertools_tpu_torch.data import labels
+
+    rng = np.random.default_rng(12)
+    pcm = {f"clip{i:02d}": (rng.normal(size=int(s * SR)) * 3000).astype(np.int16)
+           for i, s in enumerate(rng.uniform(2, 10, 40))}
+    feat = feature_dir_name("chinese-hubert-large", "UTT")
+    with tempfile.TemporaryDirectory() as d:
+        write_wavs(os.path.join(d, "audio"), pcm)
+        t0 = time.perf_counter()
+        extract_audio.main([
+            "--model_name", "chinese-hubert-large", "--audio_dir",
+            os.path.join(d, "audio"), "--save_dir", os.path.join(d, "features"),
+            "--random_init", "--encoder_size", "large", "--compute_dtype", "bf16",
+            "--transfer_dtype", "int16", "--feature_level", "UTTERANCE",
+            "--device", "cuda" if dev == "cuda" else "cpu"])
+        t_extract = time.perf_counter() - t0
+        names = sorted(pcm)
+        corpora, _ = fusion_labels(rng, {"train": names[:30], "test1": names[30:]})
+        labels.write_label_archive(os.path.join(d, "label.npz"), corpora)
+        runs, files, secs = {}, {}, {}
+        for leg, where in (("card", dev), ("cpu", "cpu")):
+            save = os.path.join(d, f"saved_{leg}")
+            t0 = time.perf_counter()
+            runs[leg] = main_release.main(fusion_flags(
+                os.path.join(d, "features"), os.path.join(d, "label.npz"), save,
+                (feat,) * 3, "--hidden_dim=256", "--dropout=0", "--lr=1e-3",
+                "--epochs=3", "--device", where))
+            secs[leg] = time.perf_counter() - t0
+            files[leg] = sorted(re.sub(r"_[0-9.]+\.npz$", "", f) for f in
+                                os.listdir(os.path.join(f"{save}-unimodal", "result")))
+    for leg, fs in files.items():
+        check([f.split("_")[0] for f in fs] == ["cv", "test1"], f"{leg} wrote {fs}")
+    got = runs["card"].test_results["test1"]["emoprobs"]
+    check(got.shape == (10, 6) and bool(np.isfinite(got).all()),
+          f"test1 logits {got.shape} or non-finite")
+    d_cpu = fusion_card_vs_cpu(runs["card"], runs["cpu"], "test1")
+    print(f"[12 fusion] a: extract_audio chinese-hubert-large --random_init "
+          f"(bf16, int16 wire) wrote 40 UTT features (1024,) in {t_extract:.1f} s "
+          f"incl. init; main_release MER2023 attention (unimodal, hidden 256, "
+          f"dropout 0, 3 epochs, 5 folds of 30 train clips, test1 10 clips) "
+          f"{secs['card']:.1f} s on the card, {secs['cpu']:.1f} s on the CPU; cv "
+          f"{runs['card'].cv_str} (CPU {runs['cpu'].cv_str}); wrote {files['card']}; "
+          f"test1 logits and valence, card vs CPU: {d_cpu:.3e} of max|cpu| "
+          f"(limit {FUSION_TOL}) [{card}]", flush=True)
+    # the names end in the metrics to 4 decimals, which the card's and the
+    # CPU's rounding can move by one in the last place; the rest is equal
+    stem = {leg: [re.sub(r"_f1:.*$", "", f) for f in fs] for leg, fs in files.items()}
+    check(stem["card"] == stem["cpu"], f"card wrote {files['card']}, CPU {files['cpu']}")
+    check(d_cpu <= FUSION_TOL, f"12a card vs CPU {d_cpu}")
+
+
+def fusion_features(rng, emos, dim: int) -> np.ndarray:
+    """(N, dim) class-separable features: a seeded centre a class plus unit
+    noise."""
+    centres = rng.normal(size=(6, dim)).astype(np.float32) * 0.3
+    return centres[emos] + rng.normal(size=(len(emos), dim)).astype(np.float32)
+
+
+def phase_fusion_mer2023(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
+                         epochs: int = 10):
+    """12b: ``main_release`` at MER2023's split sizes on seeded synthetic UTT
+    features at the published widths, 5 folds; then one epoch of a fold
+    under the profiler."""
+    from mertools_tpu_torch.cli import main_release
+    from mertools_tpu_torch.core.config import Args
+    from mertools_tpu_torch.core.device import resolve_device
+    from mertools_tpu_torch.data import feature_store, labels
+    from mertools_tpu_torch.data.dataset import FeatureDataset, epoch_plan
+    from mertools_tpu_torch.train import loop
+
+    rng = np.random.default_rng(13)
+    corpora, emos = fusion_labels(
+        rng, {s: [f"{s}_{i:05d}" for i in range(n)] for s, n in splits.items()})
+    names = [n for c in corpora.values() for n in c]
+    all_emos = np.concatenate(list(emos.values()))
+    feats = {f: fusion_features(rng, all_emos, dim) for f, dim in FUSION_FEATURES}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        for f, x in feats.items():
+            for n, row in zip(names, x):
+                feature_store.write_feature(os.path.join(d, "features", f), n, row)
+        labels.write_label_archive(os.path.join(d, "label.npz"), corpora)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = main_release.main(fusion_flags(
+            os.path.join(d, "features"), os.path.join(d, "label.npz"),
+            os.path.join(d, "saved"), [f for f, _ in FUSION_FEATURES],
+            "--hidden_dim=256", "--dropout=0.3", "--lr=1e-3", "--batch_size=32",
+            f"--epochs={epochs}", "--device", dev))
+        t_cli = time.perf_counter() - t0
+        made = sorted(os.listdir(os.path.join(d, "saved-trimodal", "result")))
+    n_train = splits["train"]
+    per = n_train // 5      # kfold_indices: 4 chunks of `per`, the last the rest
+    evals = [per] * 4 + [n_train - 4 * per]
+    steps = sum(math.ceil((n_train - e) / 32) for e in evals) * epochs
+    tests = {s: res.test_results[s] for s in splits if s != "train"}
+    print(f"[12 fusion] b: main_release MER2023 attention on {n_train} train "
+          f"clips and test1/2/3 of {splits['test1']}/{splits['test2']}/"
+          f"{splits['test3']} (synthetic class-separable UTT features: "
+          f"{', '.join(f'{f} ({dim})' for f, dim in FUSION_FEATURES)}; "
+          f"{len(names)} clips x {sum(dim for _, dim in FUSION_FEATURES)} floats), "
+          f"hidden 256, dropout 0.3, lr 1e-3, batch 32, {epochs} epochs, 5 "
+          f"folds: cv WAF {res.cv['emofscore']:.4f}, accuracy "
+          f"{res.cv['emoacc']:.4f}, valence MSE {res.cv['valmse']:.4f}; test WAF "
+          f"{ {s: round(r['emofscore'], 4) for s, r in tests.items()} }; "
+          f"run_cv {res.duration:.2f} s: {res.duration / 5:.3f} s a fold, "
+          f"{res.duration / (5 * epochs):.4f} s an epoch, "
+          f"{steps / res.duration:.1f} training steps/s ({steps} steps; eval, "
+          f"tests and host metrics included); the CLI {t_cli:.1f} s with "
+          f"reading; writing the store {t_write:.1f} s [{card}]", flush=True)
+    check(res.cv["emofscore"] > 0.9, f"12b cv WAF {res.cv['emofscore']}")
+    check(len(made) == 4, f"12b wrote {made}")
+
+    # one epoch of a fold (train, eval, three tests, host metrics) under
+    # the profiler, after one unprofiled epoch
+    args = Args(model="attention", feat_type="utt", hidden_dim=256, dropout=0.3,
+                lr=1e-3, l2=1e-5, grad_clip=-1.0, output_dim1=6, output_dim2=1)
+    device = resolve_device(dev, fp32=True)
+    split_of, start = {}, 0
+    for s, n in splits.items():
+        sl = slice(start, start + n)
+        split_of[s] = FeatureDataset(
+            names[sl], *(feats[f][sl] for f, _ in FUSION_FEATURES),
+            emos[s].astype(np.int32),
+            np.array([c["val"] for c in corpora[s].values()], np.float32))
+        start += n
+    train = loop.Split.upload(split_of["train"], device)
+    tests_dev = {s: (loop.Split.upload(ds, device), epoch_plan(np.arange(len(ds)), 32))
+                 for s, ds in split_of.items() if s != "train"}
+    fold_rng = np.random.default_rng(0)
+    idx = fold_rng.permutation(n_train)
+    train_idx, eval_idx = idx[per:], idx[:per]
+    sample = {k: v[:32] for k, v in split_of["train"].arrays().items()}
+    model = loop.init_model(args, sample, torch.Generator().manual_seed(0)).to(device)
+    opt = loop.ClippedAdam(model.parameters(), lr=1e-3)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def epoch():
+        loop.run_epoch(model, opt, gen, train, epoch_plan(train_idx, 32, fold_rng),
+                       epoch_plan(eval_idx, 32), tests_dev, True, True)
+
+    epoch()
+    if dev != "cuda":
+        return res
+    wall, *prof = device_profile(torch, epoch)
+    n_eval = math.ceil(per / 32) + sum(math.ceil(n / 32) for s, n in splits.items()
+                                       if s != "train")
+    print(f"[12 fusion] b: profile of one epoch of a fold "
+          f"({math.ceil(len(train_idx) / 32)} training steps, {n_eval} eval and "
+          f"test batches, host metrics): wall {wall:.1f} ms, "
+          f"{profile_line(*prof, wall)} [{card}]", flush=True)
+    return res
+
+
+def phase_fusion_frames(torch, card, dev: str = "cuda", n_train: int = 200,
+                        n_test: int = 40):
+    """12c: frm_align with LSTM encoders (cuDNN on the card): ``run_cv`` on
+    ragged frame-level features at the published widths, on the card and on
+    the CPU.
+
+    Two trainings agree only as far as Adam's first steps let rounding
+    grow: an element whose gradient is within rounding of 0 moves by up to
+    lr either way. So the card is held to the CPU where both start from the
+    same weights — every gradient of a training step, and the test logits of
+    a model the card trained for 2 epochs — and the script prints how far
+    the two ``run_cv`` runs drift apart, beside how far the CPU's own run
+    drifts when 1e-7 of each gradient's max is added as noise."""
+    import copy
+
+    from mertools_tpu_torch.core.config import Args
+    from mertools_tpu_torch.core.device import resolve_device
+    from mertools_tpu_torch.data.dataset import FeatureDataset, epoch_plan
+    from mertools_tpu_torch.train import loop
+
+    rng = np.random.default_rng(14)
+
+    def ragged(n):
+        spans = ((1024, 100, 500), (1024, 16, 64), (768, 50, 250))  # a, t, v
+        return [[rng.normal(size=(int(rng.integers(lo, hi + 1)), dim)).astype(np.float32)
+                 for _ in range(n)] for dim, lo, hi in spans]
+
+    sets = {}
+    for split, n in (("train", n_train), ("test1", n_test)):
+        emos = rng.integers(0, 6, n)
+        sets[split] = FeatureDataset.from_raw(
+            [f"{split}{i}" for i in range(n)], emos, (emos - 2.5) / 2.5, *ragged(n),
+            feat_type="frm_align", feat_scale=6)
+    args = Args(model="attention", feat_type="frm_align", hidden_dim=128, dropout=0.0,
+                lr=1e-3, l2=1e-5, grad_clip=-1.0, batch_size=32, epochs=2,
+                num_folder=2, output_dim1=6, output_dim2=1, metric_name="emoval")
+    runs = {leg: loop.run_cv(args, sets["train"], {"test1": sets["test1"]},
+                             seed=0, verbose=False, device=where)
+            for leg, where in (("card", dev), ("cpu", "cpu"))}
+    check(bool(np.isfinite(runs["card"].test_results["test1"]["emoprobs"]).all()),
+          "12c non-finite logits")
+    noise = torch.Generator().manual_seed(1)
+
+    clipped_adam = loop.ClippedAdam
+
+    class NoisyAdam(clipped_adam):
+        def step(self):
+            for p in self.params:
+                p.grad += 1e-7 * p.grad.abs().max() * torch.randn(p.grad.shape,
+                                                                  generator=noise)
+            super().step()
+
+    loop.ClippedAdam = NoisyAdam  # run_cv builds each fold's optimizer by name
+    try:
+        noisy = loop.run_cv(args, sets["train"], {"test1": sets["test1"]}, seed=0,
+                            verbose=False, device="cpu")
+    finally:
+        loop.ClippedAdam = clipped_adam
+    d_runs = fusion_card_vs_cpu(runs["card"], runs["cpu"], "test1")
+    d_noise = fusion_card_vs_cpu(noisy, runs["cpu"], "test1")
+
+    # the same weights on both: one training step's gradients, then the
+    # test logits of the model the card trained for 2 epochs
+    devs = {"card": resolve_device(dev, fp32=True), "cpu": torch.device("cpu")}
+    idx, mask = epoch_plan(np.arange(n_train), 32, np.random.default_rng(0))
+    sample = {k: v[idx[0]] for k, v in sets["train"].arrays().items()}
+    models = {"cpu": loop.init_model(args, sample, torch.Generator().manual_seed(0))}
+    models["card"] = copy.deepcopy(models["cpu"]).to(devs["card"])
+    data = {leg: {s: loop.Split.upload(ds, d) for s, ds in sets.items()}
+            for leg, d in devs.items()}
+    grads = {}
+    for leg, m in models.items():
+        b = torch.from_numpy(idx[0]).to(devs[leg])
+        batch = {k: v.index_select(0, b) for k, v in data[leg]["train"].data.items()}
+        loss, _, _ = loop.compute_loss(m.train(), batch, torch.from_numpy(mask[0]).to(devs[leg]),
+                                       None, True, True)
+        loss.backward()
+        grads[leg] = {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
+        m.zero_grad(set_to_none=True)
+    d_grad = max(float((grads["card"][n] - g).abs().max() / g.abs().max())
+                 for n, g in grads["cpu"].items())
+    opt = loop.ClippedAdam(models["card"].parameters(), lr=1e-3)
+    for _ in range(2):
+        plan = epoch_plan(np.arange(n_train), 32, rng)
+        loop.train_epoch(models["card"], opt, data["card"]["train"].data,
+                         *(torch.from_numpy(x).to(devs["card"]) for x in plan),
+                         None, True, True)
+    models["cpu"].load_state_dict(models["card"].state_dict())
+    test_plan = epoch_plan(np.arange(n_test), 32)
+    logits = {leg: [t.cpu() for t in loop.eval_epoch(
+        m, data[leg]["test1"].data, *(torch.from_numpy(x).to(devs[leg]) for x in test_plan),
+        True, True)[1:]] for leg, m in models.items()}
+    d_eval = max(float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(logits["card"], logits["cpu"]))
+    shape = sets["train"].audios.shape
+    print(f"[12 fusion] c: run_cv frm_align (LSTM encoders, feat_scale 6, "
+          f"audio 100-500 / text 16-64 / video 50-250 frames aligned to the "
+          f"text: train {shape}), hidden 128, dropout 0, 2 folds x 2 epochs: "
+          f"{runs['card'].duration / 4:.3f} s an epoch on the card, "
+          f"{runs['cpu'].duration / 4:.3f} s on the CPU; best epochs "
+          f"{runs['card'].best_epochs} (CPU {runs['cpu'].best_epochs}); card vs "
+          f"CPU from the same weights: a step's gradients {d_grad:.3e}, test1 "
+          f"logits and valence of the card's model after 2 epochs {d_eval:.3e} "
+          f"of max|cpu| (limit {FUSION_TOL}); the two run_cv runs' test1 "
+          f"outputs {d_runs:.3e} apart, the CPU's run against itself with "
+          f"1e-7 gradient noise {d_noise:.3e} [{card}]", flush=True)
+    check(d_grad <= FUSION_TOL, f"12c card vs CPU gradients {d_grad}")
+    check(d_eval <= FUSION_TOL, f"12c card vs CPU test logits {d_eval}")
+
+
 def b3_times_of(torch, root: str) -> int:
     """Phase 9's bf16 timing lines (S 512 and S 1024), phase 2's bf16 B1
     line (kernel, SDPA with the key mask, bound) and phase 5's B2 line
@@ -1425,6 +1750,19 @@ def main(argv: list[str]) -> int:
     b3 = phase_b3(torch, fc, card)
     train_launches = phase_train(torch, fc, tga, tl, tq, tr, card)
     phase_cli_train(torch, fc, card)
+
+    # the fusion trainer's path: counts start at 0 here and are read right
+    # after it; it runs cuBLAS/cuDNN and none of the port's kernels
+    wrappers = [fa.flash_attention, mf.mel_power] + [getattr(fc, n) for n in B3_WRAPPERS]
+    for w in wrappers:
+        w.launches = 0
+    phase_fusion_hubert(torch, card)
+    phase_fusion_mer2023(torch, card)
+    phase_fusion_frames(torch, card)
+    fusion_launches = {w.__name__: w.launches for w in wrappers}
+    print(f"[12 fusion] kernel launches in phase 12: {fusion_launches} [{card}]",
+          flush=True)
+    check(not any(fusion_launches.values()), f"phase 12 launched {fusion_launches}")
 
     b, m = kres["bf16"], mres
     kernels = [{

@@ -1,9 +1,10 @@
-"""Dataset path registry and YAML configs (port of
-``mertools_tpu/core/config.py:51-149``).
+"""Dataset path registry, YAML configs and the CLI namespace (port of
+``mertools_tpu/core/config.py:27-149,183-196``).
 
 What ``--dataset`` needs: :class:`DatasetPaths`, :class:`PathRegistry`, the
 global :data:`REGISTRY`, :func:`configure_from_env` and
-:func:`resolve_dataset_args`; and :func:`load_yaml` for the training CLI.
+:func:`resolve_dataset_args`; :func:`load_yaml` for the training CLIs; and
+for ``main_release`` the :class:`Args` namespace and :func:`random_select`.
 The registry YAML and its environment variable (``$MERTOOLS_TPU_CONFIG``)
 are the JAX package's, so one file serves both. PyYAML is imported only
 when a YAML file is read.
@@ -13,6 +14,25 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
+from typing import Mapping
+
+import numpy as np
+
+
+class Args(dict):
+    """Attribute-style config namespace (argparse-args equivalent).
+
+    Missing keys read as ``None``, matching how the reference's argparse
+    namespace behaves for unset optional flags.
+    """
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return self.get(name)
+
+    def __setattr__(self, name, value):
+        self[name] = value
 
 
 @dataclass
@@ -111,3 +131,18 @@ def load_yaml(path: str) -> dict:
 
     with open(path, "r") as f:
         return yaml.safe_load(f) or {}
+
+
+def random_select(space: Mapping[str, list],
+                  rng: np.random.Generator | None = None) -> dict:
+    """Pick one value per hyperparameter from its candidate list: a uniform
+    choice per key, in the space's order, one ``rng.integers`` draw each
+    (the JAX package's draws, so one seed picks the same values)."""
+    rng = rng or np.random.default_rng()
+    out = {}
+    for key, candidates in space.items():
+        if isinstance(candidates, (list, tuple)):
+            out[key] = candidates[int(rng.integers(len(candidates)))]
+        else:
+            out[key] = candidates
+    return out
