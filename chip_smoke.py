@@ -8,8 +8,12 @@ published width with seeded random weights — HuBERT-large audio feature
 extraction (hidden 1024, 24 layers, 16 heads), Whisper-large-v2 features and
 ASR (d_model 1280, 32 + 32 layers, 20 heads, vocab 51865), AffectGPT LoRA
 training at TinyLlama-1.1B width (hidden 2048, 22 layers, 32 heads, 4 KV
-heads, vocab 32000), and the MERBench fusion trainer (attention fusion,
-hidden 256, 5-fold CV) at MER2023's split sizes — and checks them:
+heads, vocab 32000), the MERBench fusion trainer (attention fusion, hidden
+256, 5-fold CV) at MER2023's split sizes, MacBERT-large text features
+(vocab 21128, hidden 1024, 24 layers, 16 heads, 512 positions) and
+CLIP-ViT-L/14 vision features (224 px, patch 14, 257 tokens, hidden 1024,
+24 layers, projection 768), and MER2023's trimodal pipeline — and checks
+them:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
@@ -56,7 +60,31 @@ hidden 256, 5-fold CV) at MER2023's split sizes — and checks them:
    idle share of one epoch from a profile; (c) ``run_cv`` on frm_align
    features with LSTM encoders, card against CPU from the same weights (a
    step's gradients, a trained model's test logits) beside how far two
-   trainings drift. It launches none of the port's kernels.
+   trainings drift. It launches none of the port's kernels;
+13. text: (a) ``TextExtractor.extract`` on 520 seeded sentences of 8-96
+   tokens and 16 of 200-510 (every token bucket holds a batch), batch 64,
+   UTT and FRA, in four modes (fp32 parity, fp32 + B1, bf16, bf16 + B1):
+   sentences/s, B1 launches, the modes against each other, the card
+   against the CPU (3 layers of the same weights), a profile of one
+   bf16+B1 batch, B1 against its plain version at every batch's rows,
+   bucket and key lengths and its device times at each bucket; (b) the
+   text CLI's extraction loop on a transcription CSV with an empty row,
+   and ``extract_text.main`` on a ``config.json`` + ``pytorch_model.bin``
+   directory (3 layers), both through a character-level tokenizer, against
+   the library;
+14. vision: (a) ``VisionExtractor.extract`` on 32 seeded clips of 50-250
+   face crops (112 x 112 BGR uint8), at most 64 frames a clip, in the same
+   four modes with the same checks (frames/s and clips/s; the card
+   against the CPU at 2 layers), a profile of one batch, B1 at B 64 x T
+   257 beside its bound and SDPA; (b) ToMe r 8 beside the full tower; (c)
+   ``extract_vision.main`` on a ``config.json`` + ``pytorch_model.bin``
+   directory (2 layers) against the library on the same weights;
+15. trimodal: 12a's 40 clips, each with a seeded transcript and face
+   crops, get HuBERT-large, MacBERT-large and CLIP-L UTT features, then
+   ``main_release`` attention fusion on the three, on the card and on the
+   CPU; as in 12c the card is held to the CPU from the same weights and
+   the two whole runs' distance is printed. B1's launches are printed by
+   path (phases 3, 13, 14 and 15) and summed in the kernels line.
 
     python3 chip_smoke.py --b3-times DIR
 
@@ -74,6 +102,7 @@ prints no result. It imports neither JAX nor ``transformers``.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
 import json
@@ -209,12 +238,14 @@ def cuda_ms(torch, fn, reps: int = 20, device_only: bool = False) -> list[float]
 B1_SHAPE = (16, 499, 16, 64)   # HuBERT-large attention: B, T, nh, hd
 
 
-def b1_inputs(torch, dtype):
-    """Phase 2's inputs at ``B1_SHAPE``: q (pre-scaled), k, v and ragged
-    key lengths (with a row of length 1 and one of 0), from seed 0."""
-    B, T, nh, hd = B1_SHAPE
+def b1_inputs(torch, dtype, shape=B1_SHAPE, lens=None):
+    """q (pre-scaled), k, v at ``shape`` from seed 0 and key lengths: phase
+    2's ragged ones (with a row of length 1 and one of 0) unless ``lens``
+    is given."""
+    B, T, nh, hd = shape
     rng = np.random.default_rng(0)
-    lens = [499, 480, 250, 49, 1, 0] + rng.integers(1, T + 1, B - 6).tolist()
+    if lens is None:
+        lens = [499, 480, 250, 49, 1, 0] + rng.integers(1, T + 1, B - 6).tolist()
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q0, k0, v0 = (rng.normal(size=(B, T, nh, hd)).astype(np.float32)
                   for _ in range(3))
@@ -223,14 +254,28 @@ def b1_inputs(torch, dtype):
     return q, k, v, kv_len, lens
 
 
-def b1_bound(lens, kind: str) -> tuple[float, str, float]:
+def b1_bound(lens, kind: str, shape=B1_SHAPE) -> tuple[float, str, float]:
     """(bound ms, "bytes" or "operations", FLOP) of one B1 call at
-    ``B1_SHAPE``: q, k, v read and out written once; both products over the
+    ``shape``: q, k, v read and out written once; both products over the
     keys each row attends to (rows with kv_len 0 do none)."""
-    B, T, nh, hd = B1_SHAPE
+    B, T, nh, hd = shape
     es = 4 if kind == "fp32" else 2
     flops = 4.0 * hd * nh * T * sum(min(n, T) for n in lens)
     return (*bound(4.0 * B * T * nh * hd * es + 4 * B, flops, kind), flops)
+
+
+def b1_check(torch, fa, q, k, v, kv_len, kind: str):
+    """B1 against its plain version on the same inputs: (output, max abs
+    error, error / max|ref|); fails on a non-finite output or an error over
+    ``KERNEL_TOL[kind]``."""
+    out = fa.flash_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_ref(q.float(), k.float(), v.float(), kv_len)
+    err = (out.float() - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    check(bool(torch.isfinite(out).all()), f"{kind}: non-finite output")
+    check(rel <= KERNEL_TOL[kind], f"{kind}: rel err {rel} > {KERNEL_TOL[kind]}")
+    return out, err, rel
 
 
 def b1_times(torch, fa, q, k, v, kv_len, plain: bool) -> dict:
@@ -270,15 +315,8 @@ def phase_kernel(torch, fa, card):
     res = {}
     for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         q, k, v, kv_len, lens = b1_inputs(torch, dtype)
-        out = fa.flash_attention(q, k, v, kv_len)
-        torch.cuda.synchronize()
-        ref = fa.flash_attention_ref(q.float(), k.float(), v.float(), kv_len)
-        err = (out.float() - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        out, err, rel = b1_check(torch, fa, q, k, v, kv_len, name)
         check(bool((out[5] == 0).all()), f"{name}: kv_len=0 row not zero")
-        check(rel <= KERNEL_TOL[name], f"{name}: rel err {rel} > "
-                                       f"{KERNEL_TOL[name]}")
         med = b1_times(torch, fa, q, k, v, kv_len, plain=True)
         b_ms, b_by, flops = b1_bound(lens, name)
         res[name] = dict(max_abs_err=err, rel_err=rel, ms=med["kernel"],
@@ -1544,6 +1582,52 @@ def phase_fusion_mer2023(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
     return res
 
 
+def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2):
+    """The card against the CPU where both start from the same weights (a
+    fresh fold model, seed 0): every gradient of one training step on the
+    first batch of ``sets["train"]``, then the test1 logits and valence of
+    the model the card trained for ``epochs`` epochs (batch orders from
+    ``rng``), evaluated on both. Returns the two max |card - cpu| /
+    max |cpu|."""
+    from mertools_tpu_torch.core.device import resolve_device
+    from mertools_tpu_torch.data.dataset import epoch_plan
+    from mertools_tpu_torch.train import loop
+
+    n_train, n_test = len(sets["train"]), len(sets["test1"])
+    devs = {"card": resolve_device(dev, fp32=True), "cpu": torch.device("cpu")}
+    idx, mask = epoch_plan(np.arange(n_train), 32, np.random.default_rng(0))
+    sample = {k: v[idx[0]] for k, v in sets["train"].arrays().items()}
+    models = {"cpu": loop.init_model(args, sample, torch.Generator().manual_seed(0))}
+    models["card"] = copy.deepcopy(models["cpu"]).to(devs["card"])
+    data = {leg: {s: loop.Split.upload(ds, d) for s, ds in sets.items()}
+            for leg, d in devs.items()}
+    grads = {}
+    for leg, m in models.items():
+        b = torch.from_numpy(idx[0]).to(devs[leg])
+        batch = {k: v.index_select(0, b) for k, v in data[leg]["train"].data.items()}
+        loss, _, _ = loop.compute_loss(m.train(), batch, torch.from_numpy(mask[0]).to(devs[leg]),
+                                       None, True, True)
+        loss.backward()
+        grads[leg] = {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
+        m.zero_grad(set_to_none=True)
+    d_grad = max(float((grads["card"][n] - g).abs().max() / g.abs().max())
+                 for n, g in grads["cpu"].items())
+    opt = loop.ClippedAdam(models["card"].parameters(), lr=1e-3)
+    for _ in range(epochs):
+        plan = epoch_plan(np.arange(n_train), 32, rng)
+        loop.train_epoch(models["card"], opt, data["card"]["train"].data,
+                         *(torch.from_numpy(x).to(devs["card"]) for x in plan),
+                         None, True, True)
+    models["cpu"].load_state_dict(models["card"].state_dict())
+    test_plan = epoch_plan(np.arange(n_test), 32)
+    logits = {leg: [t.cpu() for t in loop.eval_epoch(
+        m, data[leg]["test1"].data, *(torch.from_numpy(x).to(devs[leg]) for x in test_plan),
+        True, True)[1:]] for leg, m in models.items()}
+    d_eval = max(float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(logits["card"], logits["cpu"]))
+    return d_grad, d_eval
+
+
 def phase_fusion_frames(torch, card, dev: str = "cuda", n_train: int = 200,
                         n_test: int = 40):
     """12c: frm_align with LSTM encoders (cuDNN on the card): ``run_cv`` on
@@ -1557,11 +1641,8 @@ def phase_fusion_frames(torch, card, dev: str = "cuda", n_train: int = 200,
     a model the card trained for 2 epochs — and the script prints how far
     the two ``run_cv`` runs drift apart, beside how far the CPU's own run
     drifts when 1e-7 of each gradient's max is added as noise."""
-    import copy
-
     from mertools_tpu_torch.core.config import Args
-    from mertools_tpu_torch.core.device import resolve_device
-    from mertools_tpu_torch.data.dataset import FeatureDataset, epoch_plan
+    from mertools_tpu_torch.data.dataset import FeatureDataset
     from mertools_tpu_torch.train import loop
 
     rng = np.random.default_rng(14)
@@ -1605,39 +1686,7 @@ def phase_fusion_frames(torch, card, dev: str = "cuda", n_train: int = 200,
     d_runs = fusion_card_vs_cpu(runs["card"], runs["cpu"], "test1")
     d_noise = fusion_card_vs_cpu(noisy, runs["cpu"], "test1")
 
-    # the same weights on both: one training step's gradients, then the
-    # test logits of the model the card trained for 2 epochs
-    devs = {"card": resolve_device(dev, fp32=True), "cpu": torch.device("cpu")}
-    idx, mask = epoch_plan(np.arange(n_train), 32, np.random.default_rng(0))
-    sample = {k: v[idx[0]] for k, v in sets["train"].arrays().items()}
-    models = {"cpu": loop.init_model(args, sample, torch.Generator().manual_seed(0))}
-    models["card"] = copy.deepcopy(models["cpu"]).to(devs["card"])
-    data = {leg: {s: loop.Split.upload(ds, d) for s, ds in sets.items()}
-            for leg, d in devs.items()}
-    grads = {}
-    for leg, m in models.items():
-        b = torch.from_numpy(idx[0]).to(devs[leg])
-        batch = {k: v.index_select(0, b) for k, v in data[leg]["train"].data.items()}
-        loss, _, _ = loop.compute_loss(m.train(), batch, torch.from_numpy(mask[0]).to(devs[leg]),
-                                       None, True, True)
-        loss.backward()
-        grads[leg] = {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
-        m.zero_grad(set_to_none=True)
-    d_grad = max(float((grads["card"][n] - g).abs().max() / g.abs().max())
-                 for n, g in grads["cpu"].items())
-    opt = loop.ClippedAdam(models["card"].parameters(), lr=1e-3)
-    for _ in range(2):
-        plan = epoch_plan(np.arange(n_train), 32, rng)
-        loop.train_epoch(models["card"], opt, data["card"]["train"].data,
-                         *(torch.from_numpy(x).to(devs["card"]) for x in plan),
-                         None, True, True)
-    models["cpu"].load_state_dict(models["card"].state_dict())
-    test_plan = epoch_plan(np.arange(n_test), 32)
-    logits = {leg: [t.cpu() for t in loop.eval_epoch(
-        m, data[leg]["test1"].data, *(torch.from_numpy(x).to(devs[leg]) for x in test_plan),
-        True, True)[1:]] for leg, m in models.items()}
-    d_eval = max(float((a - b).abs().max() / b.abs().max())
-                 for a, b in zip(logits["card"], logits["cpu"]))
+    d_grad, d_eval = same_weights_check(torch, args, sets, dev, rng)
     shape = sets["train"].audios.shape
     print(f"[12 fusion] c: run_cv frm_align (LSTM encoders, feat_scale 6, "
           f"audio 100-500 / text 16-64 / video 50-250 frames aligned to the "
@@ -1652,6 +1701,558 @@ def phase_fusion_frames(torch, card, dev: str = "cuda", n_train: int = 200,
           f"1e-7 gradient noise {d_noise:.3e} [{card}]", flush=True)
     check(d_grad <= FUSION_TOL, f"12c card vs CPU gradients {d_grad}")
     check(d_eval <= FUSION_TOL, f"12c card vs CPU test logits {d_eval}")
+
+
+# ------------------------------------------ text, vision, trimodal (13-15)
+# worst clip's max|a - b| / max|b| (PERF.md §2): how many times as far
+# from fp32 the bf16+B1 route may lie as the inline bf16 route does; each
+# bf16 route from fp32; fp32+B1 from fp32; card vs CPU in fp32
+FEATURE_TOL = {"flash_spread": 1.25, "bf16": 3e-2, "fp32_flash": 1e-4, "cpu": 1e-3}
+MODES = {"fp32": {}, "fp32_flash": dict(flash=True), "bf16": dict(compute_dtype="bf16"),
+         "bf16_flash": dict(compute_dtype="bf16", flash=True)}
+
+
+class CharTokenizer:
+    """A character-level stand-in for chinese-macbert-large's BertTokenizer
+    (no tokenizer file is in the repository, and the card's machine has no
+    ``transformers``): [CLS] + one id a CJK character + [SEP], every id
+    inside the 21128-entry vocabulary; ``decode`` joins the characters with
+    spaces, as BertTokenizer's does, so ``find_token_span`` finds (1, -1)."""
+
+    CLS, SEP, FIRST_ID, FIRST_CHAR, N_CHARS = 101, 102, 672, 0x4E00, 21128 - 672
+
+    def __call__(self, text: str) -> dict:
+        return {"input_ids": [self.CLS] + [ord(c) - self.FIRST_CHAR + self.FIRST_ID
+                                           for c in text] + [self.SEP]}
+
+    def decode(self, ids) -> str:
+        names = {self.CLS: "[CLS]", self.SEP: "[SEP]"}
+        return " ".join(names.get(i) or chr(i - self.FIRST_ID + self.FIRST_CHAR)
+                        for i in ids)
+
+    @classmethod
+    def sentence(cls, rng, n_tokens: int) -> str:
+        """A seeded sentence that tokenizes to ``n_tokens`` ids."""
+        return "".join(chr(cls.FIRST_CHAR + int(i))
+                       for i in rng.integers(0, cls.N_CHARS, n_tokens - 2))
+
+
+def text_corpus(rng) -> dict:
+    """Phase 13's sentences as token ids: 504 of 8-96 tokens (log-uniform,
+    so the short buckets fill whole batches) and 16 long ones, 8 of 200-256
+    and 8 of 257-510 tokens. 520 = 8 batches of 64 and one of 8, so a batch
+    boundary falls among the long ones and every bucket of
+    ``DEFAULT_TOKEN_BUCKETS`` holds a batch."""
+    lens = np.round(np.exp(rng.uniform(np.log(8), np.log(96), 504))).astype(int)
+    lens = [*lens, *rng.integers(200, 257, 8), *rng.integers(257, 511, 8)]
+    tok = CharTokenizer()
+    return {f"s{i:03d}": tok(CharTokenizer.sentence(rng, int(n)))["input_ids"]
+            for i, n in enumerate(lens)}
+
+
+def text_batches(token_ids: dict, buckets, batch: int = 64) -> list:
+    """(bucket, key lengths) of each batch ``TextExtractor.extract`` forms
+    from ``token_ids``: sentences sorted by length, ``batch`` at a time,
+    each batch padded to the first bucket that holds its longest (the last
+    bucket cuts), so B1 sees (rows, bucket) and these key lengths."""
+    lens = sorted(len(t) for t in token_ids.values())
+    out = []
+    for i in range(0, len(lens), batch):
+        part = lens[i: i + batch]
+        bucket = next((b for b in buckets if part[-1] <= b), buckets[-1])
+        out.append((bucket, [min(n, bucket) for n in part]))
+    return out
+
+
+def feature_gates(d: dict, label: str) -> None:
+    """Phases 13-14's gates on ``d[a, b, level]``, the worst clip's max|a -
+    b| / max|b| between modes: on UTT and FRA the bf16+B1 route lies at
+    most ``flash_spread`` times as far from fp32 as the inline bf16 route
+    (a fault in B1 moves only the first), and fp32+B1 within ``fp32_flash``
+    of fp32 (B1 against the inline attention through the whole encoder);
+    on UTT both bf16 routes within ``bf16`` of fp32. bf16+B1 vs bf16 is
+    printed, not gated: two bf16 routes that round the attention apart lie
+    as far apart as each lies from fp32 (PERF.md §6)."""
+    for lv in ("UTT", "FRA"):
+        lim = FEATURE_TOL["flash_spread"] * d["bf16", "fp32", lv]
+        check(d["bf16_flash", "fp32", lv] <= lim,
+              f"{label} {lv} bf16+B1 vs fp32 {d['bf16_flash', 'fp32', lv]} > {lim}")
+        check(d["fp32_flash", "fp32", lv] <= FEATURE_TOL["fp32_flash"],
+              f"{label} {lv} fp32+B1 vs fp32 {d['fp32_flash', 'fp32', lv]}")
+    for mode in ("bf16", "bf16_flash"):
+        check(d[mode, "fp32", "UTT"] <= FEATURE_TOL["bf16"],
+              f"{label} UTT {mode} vs fp32 {d[mode, 'fp32', 'UTT']}")
+
+
+def layer_prefix_sd(params: dict, layers_key: str, n: int) -> dict:
+    """The state dict of the first ``n`` layers (and everything outside
+    ``layers_key``), on the CPU."""
+    def keep(k):
+        if layers_key not in k:
+            return True
+        return int(k.split(layers_key)[1].split(".")[0]) < n
+    return {k: v.cpu() for k, v in params.items() if keep(k)}
+
+
+def run_modes(torch, fa, make, data: dict, warm: dict, n_batches: int,
+              layers: int, label: str, card: str, dev: str):
+    """The main path of phases 13 and 14: each mode's extractor (``make(
+    **kw)``) warmed on ``warm``, then, with B1's count set to 0 just before,
+    UTT and FRA over ``data``. Returns (extractors, outputs by (mode,
+    level), seconds, launches by mode)."""
+    exs = {m: make(**kw) for m, kw in MODES.items()}
+    for ex in exs.values():
+        ex.extract(warm, level="UTT")
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    fa.flash_attention.launches = 0
+    outs, secs, launches = {}, {}, {}
+    for mode, ex in exs.items():
+        before = fa.flash_attention.launches
+        for level in ("UTT", "FRA"):
+            t0 = time.perf_counter()
+            outs[mode, level] = ex.extract(data, level=level)
+            sync()
+            secs[mode, level] = time.perf_counter() - t0
+        launches[mode] = fa.flash_attention.launches - before
+    for mode, n in launches.items():
+        want = 2 * layers * n_batches if "flash" in mode else 0
+        check(n == want, f"{label} {mode}: {n} B1 launches, want {want}")
+    d = {(a, b, lv): rel_diff(outs[a, lv], outs[b, lv]) for lv in ("UTT", "FRA")
+         for a, b in (("bf16_flash", "bf16"), ("bf16", "fp32"),
+                      ("bf16_flash", "fp32"), ("fp32_flash", "fp32"))}
+    for lv in ("UTT", "FRA"):
+        print(f"[{label}] {lv}, worst clip's max|a - b| / max|b|: bf16+B1 vs "
+              f"bf16 {d['bf16_flash', 'bf16', lv]:.3e}, bf16 vs fp32 "
+              f"{d['bf16', 'fp32', lv]:.3e}, bf16+B1 vs fp32 "
+              f"{d['bf16_flash', 'fp32', lv]:.3e}, fp32+B1 vs fp32 "
+              f"{d['fp32_flash', 'fp32', lv]:.3e} (limits: bf16+B1 vs fp32 "
+              f"{FEATURE_TOL['flash_spread']} x bf16 vs fp32 = "
+              f"{FEATURE_TOL['flash_spread'] * d['bf16', 'fp32', lv]:.3e}; fp32+B1 "
+              f"vs fp32 {FEATURE_TOL['fp32_flash']}; UTT, both bf16 routes vs "
+              f"fp32 {FEATURE_TOL['bf16']}) [{card}]", flush=True)
+    feature_gates(d, label)
+    return exs, outs, secs, launches
+
+
+def b1_at(torch, fa, shape, lens, label: str, card: str, timed: bool = True):
+    """B1 (bf16) against its plain version at an encoder's shape and key
+    lengths; with ``timed``, its device time beside the plain version's,
+    SDPA with the key mask and the bound. Returns the row."""
+    q, k, v, kv_len, _ = b1_inputs(torch, torch.bfloat16, shape, list(lens))
+    _, err, rel = b1_check(torch, fa, q, k, v, kv_len, "bf16")
+    row = dict(max_abs_err=err, rel_err=rel)
+    line = (f"[{label}] B1 bf16 B,T,nh,hd={shape} kv_len {min(lens)}-{max(lens)}: "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (limit {KERNEL_TOL['bf16']})")
+    if timed:
+        med = b1_times(torch, fa, q, k, v, kv_len, plain=True)
+        b_ms, b_by, flops = b1_bound(lens, "bf16", shape)
+        row.update(ms=med["kernel"], plain_ms=med["plain"], library_ms=med["library"],
+                   inline_ms=med["inline"], bound_ms=b_ms, bound_by=b_by)
+        line += (f"; kernel {med['kernel']:.4f} ms, plain {med['plain']:.4f} ms, "
+                 f"encoder inline attention {med['inline']:.4f} ms, SDPA with "
+                 f"the key mask {med['library']:.4f} ms (median of 20); bound "
+                 f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.2f} GFLOP)")
+    print(f"{line} [{card}]", flush=True)
+    return row
+
+
+def profile_batch(torch, fn, label: str, what: str, card: str) -> None:
+    wall, *prof = device_profile(torch, fn)
+    print(f"[{label}] profile of one bf16+B1 batch ({what}): wall {wall:.1f} ms, "
+          f"{profile_line(*prof, wall)} [{card}]", flush=True)
+
+
+def phase_text(torch, fa, cfg, card, dev: str = "cuda"):
+    """13: MacBERT-large text features (a) through ``TextExtractor.extract``
+    in three modes, and (b) through the text CLI's ``_run_extraction``."""
+    from mertools_tpu_torch.cli import extract_text
+    from mertools_tpu_torch.encoders import bert as tb
+    from mertools_tpu_torch.features import text as tt
+
+    t0 = time.perf_counter()
+    params = tb.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    print(f"[13 text] MacBERT-large geometry (vocab {cfg.vocab_size}, hidden "
+          f"{cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads, FFN {cfg.intermediate_size}, "
+          f"{cfg.max_position_embeddings} positions), random init "
+          f"({sum(p.numel() for p in params.values()) / 1e6:.1f} M params) "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    corpus = text_corpus(np.random.default_rng(13))
+
+    def make(**kw):
+        return tt.TextExtractor(cfg, params, batch_size=64, device=dev, **kw)
+
+    batches = text_batches(corpus, tt.DEFAULT_TOKEN_BUCKETS)
+    buckets = [b for b, _ in batches]
+    check(set(buckets) == set(tt.DEFAULT_TOKEN_BUCKETS),
+          f"13 batches hit buckets {buckets}")
+    by_len = sorted(corpus, key=lambda n: len(corpus[n]))
+    exs, outs, secs, launches = run_modes(
+        torch, fa, make, corpus, corpus, len(buckets), cfg.num_hidden_layers,
+        "13 text", card, dev)
+    n_tok = sum(len(t) for t in corpus.values())
+    for mode in MODES:
+        print(f"[13 text] {mode}: UTT {len(corpus) / secs[mode, 'UTT']:.1f} "
+              f"sentences/s, FRA {len(corpus) / secs[mode, 'FRA']:.1f} "
+              f"sentences/s ({len(corpus)} sentences, {n_tok} tokens, batches "
+              f"of 64 in buckets {buckets}); B1 launches {launches[mode]} "
+              f"[{card}]", flush=True)
+    for name, f in outs["bf16_flash", "UTT"].items():
+        check(f.shape == (cfg.hidden_size,) and bool(np.isfinite(f).all()),
+              f"13 UTT {name}: shape {f.shape} or non-finite")
+    for name, f in outs["bf16_flash", "FRA"].items():
+        check(f.shape == (min(len(corpus[name]), 512) - 2, cfg.hidden_size)
+              and bool(np.isfinite(f).all()), f"13 FRA {name}: shape {f.shape}")
+
+    # fp32 on the card vs the CPU, 3 layers of the same weights (the last-4
+    # sum needs 4 hidden states)
+    cfg3 = dataclasses.replace(cfg, num_hidden_layers=3)
+    sd3 = layer_prefix_sd(params, "encoder.layer.", 3)
+    few = {n: corpus[n] for n in by_len[:: len(by_len) // 4]}
+    got = tt.TextExtractor(cfg3, sd3, device=dev).extract(few, level="FRA")
+    want = tt.TextExtractor(cfg3, sd3, device="cpu").extract(few, level="FRA")
+    d_cpu = rel_diff(got, want)
+    print(f"[13 text] card vs CPU fp32 (3 layers, {len(few)} sentences of "
+          f"{sorted(len(t) for t in few.values())} tokens, FRA): {d_cpu:.3e} "
+          f"(limit {FEATURE_TOL['cpu']}) [{card}]", flush=True)
+    check(d_cpu <= FEATURE_TOL["cpu"], f"13 card vs CPU {d_cpu}")
+
+    b1 = {}
+    if dev == "cuda":
+        one = {n: corpus[n] for n in by_len if 64 < len(corpus[n]) <= 128}
+        one = dict(list(one.items())[:64])
+        profile_batch(torch, lambda: exs["bf16_flash"].extract(one, level="UTT"),
+                      "13 text", f"{len(one)} sentences, bucket 128", card)
+        # B1 against its plain version at every batch's rows, bucket and key
+        # lengths; timed at the first batch of each bucket
+        heads = (cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads)
+        for bucket, lens in batches:
+            row = b1_at(torch, fa, (len(lens), bucket, *heads), lens, "13 text",
+                        card, timed=bucket not in b1)
+            b1.setdefault(bucket, row)
+
+    # b: the CLI's extraction loop on a transcription CSV with an empty row,
+    # and the CLI's main on a checkpoint directory, both through the
+    # character tokenizer
+    rng = np.random.default_rng(131)
+    rows = {f"clip{i:02d}": CharTokenizer.sentence(rng, int(n))
+            for i, n in enumerate(rng.integers(8, 97, 11))}
+    rows["clip_empty"] = ""
+    ex = exs["bf16_flash"]
+    with tempfile.TemporaryDirectory() as d:
+        trans = os.path.join(d, "transcription.csv")
+        with open(trans, "w", newline="", encoding="utf-8") as f:
+            f.write("name,chinese\n" + "".join(f"{n},{s}\n" for n, s in rows.items()))
+        args = argparse.Namespace(
+            trans_path=trans, language="chinese", save_dir=d,
+            model_name="chinese-macbert-large", feature_level="UTTERANCE",
+            profile=None)
+        t0 = time.perf_counter()
+        extract_text._run_extraction(args, CharTokenizer(), ex, cfg)
+        dt = time.perf_counter() - t0
+        out_dir = os.path.join(d, "chinese-macbert-large-UTT")
+        feats = {n[:-4]: np.load(os.path.join(out_dir, n))
+                 for n in sorted(os.listdir(out_dir))}
+    check(sorted(feats) == sorted(rows), f"13b wrote {sorted(feats)}")
+    check(not feats.pop("clip_empty").any(), "13b: the empty row is not zeros")
+    tok = CharTokenizer()
+    lib = ex.extract({n: tok(s)["input_ids"] for n, s in rows.items() if s},
+                     level="UTT")
+    d_cli = rel_diff(feats, lib)
+    print(f"[13 text] b: extract_text._run_extraction (character tokenizer) "
+          f"wrote {len(rows)} UTT features ({cfg.hidden_size},) in {dt:.2f} s, "
+          f"the empty row zeros; vs TextExtractor.extract bf16+B1: {d_cli:.3e} "
+          f"(limit 1e-5) [{card}]", flush=True)
+    check(d_cli <= 1e-5, f"13b CLI vs library {d_cli}")
+
+    t0, d_main = time.perf_counter(), cli_text_main(torch, cfg3, sd3, rows, dev)
+    print(f"[13 text] b: extract_text.main on config.json + pytorch_model.bin "
+          f"(MacBERT-large width, 3 layers, keys under bert.) wrote "
+          f"{len(rows)} UTT features in {time.perf_counter() - t0:.2f} s incl. "
+          f"loading, the empty row zeros; vs TextExtractor.extract fp32 on the "
+          f"same weights: {d_main:.3e} (limit 1e-5) [{card}]", flush=True)
+    check(d_main <= 1e-5, f"13b extract_text.main vs library {d_main}")
+    return exs["bf16_flash"], sum(launches.values()), b1
+
+
+def cli_text_main(torch, cfg, sd: dict, rows: dict, dev: str) -> float:
+    """``extract_text.main`` on a checkpoint directory written here (a
+    ``BertForMaskedLM``-style ``config.json`` + ``pytorch_model.bin``, the
+    body's keys under ``bert.``) and a transcription CSV of ``rows``, with
+    ``CharTokenizer`` in place of the checkpoint's tokenizer (the card's
+    machine has no ``transformers``). Returns its UTT features' distance
+    from ``TextExtractor.extract`` on the same weights; fails if the empty
+    row is not zeros."""
+    from mertools_tpu_torch.cli import extract_text
+    from mertools_tpu_torch.core import checkpoint
+    from mertools_tpu_torch.features import text as tt
+
+    name = "chinese-macbert-large"
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "ckpt", name)
+        os.makedirs(ckpt)
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump({"model_type": "bert", **{k: getattr(cfg, k) for k in (
+                "vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
+                "intermediate_size", "max_position_embeddings", "type_vocab_size",
+                "layer_norm_eps")}}, f)
+        torch.save({f"bert.{k}": v for k, v in sd.items()},
+                   os.path.join(ckpt, "pytorch_model.bin"))
+        trans = os.path.join(d, "transcription.csv")
+        with open(trans, "w", newline="", encoding="utf-8") as f:
+            f.write("name,chinese\n" + "".join(f"{n},{s}\n" for n, s in rows.items()))
+        load_tokenizer = checkpoint.load_tokenizer
+        checkpoint.load_tokenizer = lambda path: CharTokenizer()
+        try:
+            extract_text.main(["--model_name", name, "--pretrain_dir",
+                               os.path.join(d, "ckpt"), "--trans_path", trans,
+                               "--save_dir", d, "--feature_level", "UTTERANCE",
+                               "--device", dev])
+        finally:
+            checkpoint.load_tokenizer = load_tokenizer
+        out_dir = os.path.join(d, f"{name}-UTT")
+        feats = {n[:-4]: np.load(os.path.join(out_dir, n))
+                 for n in sorted(os.listdir(out_dir))}
+    check(sorted(feats) == sorted(rows), f"13b main wrote {sorted(feats)}")
+    empty = [n for n, s in rows.items() if not s]
+    check(not any(feats.pop(n).any() for n in empty), "13b main: an empty row is not zeros")
+    tok = CharTokenizer()
+    lib = tt.TextExtractor(cfg, sd, device=dev).extract(
+        {n: tok(s)["input_ids"] for n, s in rows.items() if s}, level="UTT")
+    return rel_diff(feats, lib)
+
+
+def face_clips(rng, n: int) -> dict:
+    """OpenFace's face crops: ``n`` clips of 50-250 frames (2-10 s at 25
+    fps) of 112 x 112 x 3 BGR uint8."""
+    return {f"clip{i:02d}": rng.integers(0, 256, (int(t), 112, 112, 3), np.uint8)
+            for i, t in enumerate(rng.integers(50, 251, n))}
+
+
+def phase_vision(torch, fa, cfg, card, dev: str = "cuda"):
+    """14: CLIP-ViT-L/14 vision features (a) through
+    ``VisionExtractor.extract`` in three modes, (b) with ToMe, and (c)
+    through ``extract_vision.main`` on a checkpoint directory."""
+    from mertools_tpu_torch.cli import extract_vision
+    from mertools_tpu_torch.encoders import vit_clip as tc
+    from mertools_tpu_torch.features import vision as tvis
+
+    t0 = time.perf_counter()
+    params = tc.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    print(f"[14 vision] CLIP-ViT-L/14 geometry (image {cfg.image_size}, patch "
+          f"{cfg.patch_size}, {cfg.num_positions} tokens, hidden "
+          f"{cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads, FFN {cfg.intermediate_size}, "
+          f"projection {cfg.projection_dim}), random init "
+          f"({sum(p.numel() for p in params.values()) / 1e6:.1f} M params) "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    clips = face_clips(np.random.default_rng(14), 32)
+    n_frames = sum(min(len(c), 64) for c in clips.values())
+    n_batches = math.ceil(n_frames / 64)
+
+    def make(**kw):
+        return tvis.VisionExtractor(cfg, params, batch_size=64, max_frames=64,
+                                    device=dev, **kw)
+
+    warm = dict(list(clips.items())[:1])
+    exs, outs, secs, launches = run_modes(
+        torch, fa, make, clips, warm, n_batches, cfg.num_hidden_layers,
+        "14 vision", card, dev)
+    for mode in MODES:
+        print(f"[14 vision] {mode}: UTT {n_frames / secs[mode, 'UTT']:.1f} "
+              f"frames/s = {len(clips) / secs[mode, 'UTT']:.2f} clips/s, FRA "
+              f"{n_frames / secs[mode, 'FRA']:.1f} frames/s ({len(clips)} clips "
+              f"of {min(len(c) for c in clips.values())}-"
+              f"{max(len(c) for c in clips.values())} frames resampled to at "
+              f"most 64, {n_frames} frames, {n_batches} batches of 64); B1 "
+              f"launches {launches[mode]} [{card}]", flush=True)
+    P = cfg.projection_dim
+    for name, f in outs["bf16_flash", "UTT"].items():
+        check(f.shape == (P,) and bool(np.isfinite(f).all()),
+              f"14 UTT {name}: shape {f.shape} or non-finite")
+    for name, f in outs["bf16_flash", "FRA"].items():
+        check(f.shape == (min(len(clips[name]), 64), P)
+              and bool(np.isfinite(f).all()), f"14 FRA {name}: shape {f.shape}")
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    sd2 = layer_prefix_sd(params, "encoder.layers.", 2)
+    few = {"clip00": clips["clip00"][:4]}
+    got = tvis.VisionExtractor(cfg2, sd2, device=dev).extract(few, level="FRA")
+    want = tvis.VisionExtractor(cfg2, sd2, device="cpu").extract(few, level="FRA")
+    d_cpu = rel_diff(got, want)
+    print(f"[14 vision] card vs CPU fp32 (2 layers, 4 frames, FRA): "
+          f"{d_cpu:.3e} (limit {FEATURE_TOL['cpu']}) [{card}]", flush=True)
+    check(d_cpu <= FEATURE_TOL["cpu"], f"14 card vs CPU {d_cpu}")
+
+    b1 = {}
+    if dev == "cuda":
+        profile_batch(torch, lambda: exs["bf16_flash"].extract(warm, level="UTT"),
+                      "14 vision", f"{min(len(warm['clip00']), 64)} frames", card)
+        hd = cfg.hidden_size // cfg.num_attention_heads
+        b1 = b1_at(torch, fa, (64, cfg.num_positions, cfg.num_attention_heads, hd),
+                   [cfg.num_positions] * 64, "14 vision", card)
+
+    # b: ToMe r 8 in bf16 on the plain route, beside the full tower
+    sub = dict(list(clips.items())[:4])
+    t0 = time.perf_counter()
+    tome = tvis.VisionExtractor(dataclasses.replace(cfg, tome_r=8), params,
+                                compute_dtype="bf16", device=dev).extract(sub, level="UTT")
+    dt = time.perf_counter() - t0
+    for name, f in tome.items():
+        check(f.shape == (P,) and bool(np.isfinite(f).all()),
+              f"14b ToMe {name}: shape {f.shape} or non-finite")
+    d_tome = rel_diff(tome, {n: outs["bf16", "UTT"][n] for n in sub})
+    print(f"[14 vision] b: ToMe r 8 (bf16, plain attention; 257 tokens merged "
+          f"8 a layer while (N - 1) // 2 allows): {len(sub)} clips in {dt:.2f} s "
+          f"incl. set-up, UTT ({P},) finite; vs the full tower in bf16: "
+          f"{d_tome:.3e} of max (an approximation, no limit) [{card}]", flush=True)
+
+    # c: the CLI on a checkpoint directory (config.json + pytorch_model.bin)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "ckpt", "clip-vit-large-patch14")
+        os.makedirs(ckpt)
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump({"model_type": "clip_vision_model", "hidden_size": cfg.hidden_size,
+                       "num_hidden_layers": 2, "num_attention_heads": cfg.num_attention_heads,
+                       "intermediate_size": cfg.intermediate_size,
+                       "image_size": cfg.image_size, "patch_size": cfg.patch_size,
+                       "projection_dim": P, "layer_norm_eps": cfg.layer_norm_eps}, f)
+        torch.save(sd2, os.path.join(ckpt, "pytorch_model.bin"))
+        faces = os.path.join(d, "faces")
+        os.makedirs(faces)
+        for n, c in sub.items():
+            np.save(os.path.join(faces, f"{n}.npy"), c)
+        t0 = time.perf_counter()
+        extract_vision.main(["--model_name", "clip-vit-large-patch14",
+                             "--pretrain_dir", os.path.join(d, "ckpt"),
+                             "--face_dir", faces, "--save_dir", d,
+                             "--feature_level", "UTTERANCE", "--device", dev])
+        dt = time.perf_counter() - t0
+        out_dir = os.path.join(d, "clip-vit-large-patch14-UTT")
+        feats = {n[:-4]: np.load(os.path.join(out_dir, n))
+                 for n in sorted(os.listdir(out_dir))}
+    lib = tvis.VisionExtractor(cfg2, sd2, device=dev).extract(sub, level="UTT")
+    d_cli = rel_diff(feats, lib)
+    print(f"[14 vision] c: extract_vision.main on config.json + "
+          f"pytorch_model.bin (CLIP-L width, 2 layers) wrote {len(feats)} UTT "
+          f"features in {dt:.2f} s incl. loading; vs VisionExtractor.extract "
+          f"fp32 on the same weights: {d_cli:.3e} (limit 1e-5) [{card}]", flush=True)
+    check(sorted(feats) == sorted(sub), f"14c wrote {sorted(feats)}")
+    check(d_cli <= 1e-5, f"14c CLI vs library {d_cli}")
+    return exs["bf16_flash"], sum(launches.values()), b1
+
+
+def phase_trimodal(torch, fa, ex_text, ex_vis, card, dev: str = "cuda"):
+    """15: MER2023's trimodal pipeline on 12a's 40 clips, each with a seeded
+    transcript and face crops: HuBERT-large UTT (``extract_audio``),
+    MacBERT-large UTT (phase 13's extractor through the text CLI's loop) and
+    CLIP-L UTT (phase 14's through the vision CLI's loop), then
+    ``main_release`` attention fusion on the three, on the card and on the
+    CPU. As in 12c, the card is held to the CPU from the same weights: two
+    whole runs drift apart as far as Adam lets rounding grow, which on
+    these features can pass 1e-4, so their distance is printed only."""
+    from mertools_tpu_torch.cli import extract_audio, extract_text, extract_vision
+    from mertools_tpu_torch.cli import main_release
+    from mertools_tpu_torch.core.config import Args
+    from mertools_tpu_torch.core.globals_mer import EMO2IDX_MER, feature_dir_name
+    from mertools_tpu_torch.data import labels
+    from mertools_tpu_torch.data.dataset import FeatureDataset
+
+    rng = np.random.default_rng(12)   # 12a's wavs and labels
+    pcm = {f"clip{i:02d}": (rng.normal(size=int(s * SR)) * 3000).astype(np.int16)
+           for i, s in enumerate(rng.uniform(2, 10, 40))}
+    names = sorted(pcm)
+    corpora, _ = fusion_labels(rng, {"train": names[:30], "test1": names[30:]})
+    rng = np.random.default_rng(15)
+    trans = {n: CharTokenizer.sentence(rng, int(k))
+             for n, k in zip(names, rng.integers(8, 97, 40))}
+    feats = [feature_dir_name(m, "UTT") for m in
+             ("chinese-hubert-large", "chinese-macbert-large", "clip-vit-large-patch14")]
+    secs = {}
+    with tempfile.TemporaryDirectory() as d:
+        fdir = os.path.join(d, "features")
+        write_wavs(os.path.join(d, "audio"), pcm)
+        os.makedirs(os.path.join(d, "faces"))
+        n_frames = 0
+        for n, c in face_clips(rng, 40).items():
+            np.save(os.path.join(d, "faces", f"{n}.npy"), c)
+            n_frames += min(len(c), 64)
+        with open(os.path.join(d, "transcription.csv"), "w", newline="",
+                  encoding="utf-8") as f:
+            f.write("name,chinese\n" + "".join(f"{n},{s}\n" for n, s in trans.items()))
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        extract_audio.main([
+            "--model_name", "chinese-hubert-large", "--audio_dir",
+            os.path.join(d, "audio"), "--save_dir", fdir, "--random_init",
+            "--encoder_size", "large", "--compute_dtype", "bf16",
+            "--transfer_dtype", "int16", "--feature_level", "UTTERANCE",
+            "--device", dev])
+        secs["audio"] = time.perf_counter() - t0
+        common = dict(save_dir=fdir, feature_level="UTTERANCE", profile=None)
+        t0 = time.perf_counter()
+        extract_text._run_extraction(argparse.Namespace(
+            trans_path=os.path.join(d, "transcription.csv"), language="chinese",
+            model_name="chinese-macbert-large", **common),
+            CharTokenizer(), ex_text, ex_text.cfg)
+        secs["text"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        extract_vision._run_extraction(argparse.Namespace(
+            face_dir=os.path.join(d, "faces"), model_name="clip-vit-large-patch14",
+            **common), ex_vis)
+        secs["vision"] = time.perf_counter() - t0
+        launches = fa.flash_attention.launches
+        dims = {f: np.load(os.path.join(fdir, f, "clip00.npy")).shape for f in feats}
+        labels.write_label_archive(os.path.join(d, "label.npz"), corpora)
+        sets = {split: FeatureDataset.build(
+            list(c), np.array([EMO2IDX_MER[v["emo"]] for v in c.values()]),
+            np.array([v["val"] for v in c.values()], np.float32),
+            *(os.path.join(fdir, f) for f in feats))
+            for split, c in corpora.items()}
+        runs, files = {}, {}
+        for leg, where in (("card", dev), ("cpu", "cpu")):
+            save = os.path.join(d, f"saved_{leg}")
+            t0 = time.perf_counter()
+            runs[leg] = main_release.main(fusion_flags(
+                fdir, os.path.join(d, "label.npz"), save, feats,
+                "--hidden_dim=256", "--dropout=0", "--lr=1e-3", "--epochs=3",
+                "--device", where))
+            secs[leg] = time.perf_counter() - t0
+            files[leg] = sorted(re.sub(r"_[0-9.]+\.npz$", "", f) for f in
+                                os.listdir(os.path.join(f"{save}-trimodal", "result")))
+    for leg, fs in files.items():
+        check([f.split("_")[0] for f in fs] == ["cv", "test1"], f"15 {leg} wrote {fs}")
+    got = runs["card"].test_results["test1"]["emoprobs"]
+    check(got.shape == (10, 6) and bool(np.isfinite(got).all()),
+          f"15 test1 logits {got.shape} or non-finite")
+    d_runs = fusion_card_vs_cpu(runs["card"], runs["cpu"], "test1")
+    args = Args(model="attention", feat_type="utt", hidden_dim=256, dropout=0.0,
+                lr=1e-3, l2=1e-5, grad_clip=-1.0, batch_size=32, epochs=3,
+                num_folder=5, output_dim1=6, output_dim2=1, metric_name="emoval")
+    d_grad, d_eval = same_weights_check(torch, args, sets, dev,
+                                        np.random.default_rng(0), epochs=3)
+    print(f"[15 trimodal] 40 clips: extract_audio HuBERT-large (bf16, int16 "
+          f"wire) {secs['audio']:.1f} s incl. init, MacBERT-large (bf16+B1, "
+          f"transcripts of 8-96 tokens) {secs['text']:.2f} s, CLIP-L (bf16+B1, "
+          f"50-250 face frames a clip) {secs['vision']:.2f} s; UTT widths "
+          f"{ {f: s for f, s in dims.items()} }; B1 launches {launches}; "
+          f"main_release MER2023 attention (trimodal, hidden 256, dropout 0, 3 "
+          f"epochs, 5 folds of 30 train clips, test1 10 clips) {secs['card']:.1f} s "
+          f"on the card, {secs['cpu']:.1f} s on the CPU; cv {runs['card'].cv_str} "
+          f"(CPU {runs['cpu'].cv_str}); card vs CPU from the same weights (as "
+          f"12c): a step's gradients {d_grad:.3e}, test1 logits and valence of "
+          f"the card's model after 3 epochs {d_eval:.3e} of max|cpu| (limit "
+          f"{FUSION_TOL}); the two main_release runs' test1 outputs "
+          f"{d_runs:.3e} apart [{card}]", flush=True)
+    check(d_grad <= FUSION_TOL, f"15 card vs CPU gradients {d_grad}")
+    check(d_eval <= FUSION_TOL, f"15 card vs CPU test logits {d_eval}")
+    # one text batch of 40 sentences and the face frames in batches of 64,
+    # one launch a layer
+    want = (ex_text.cfg.num_hidden_layers
+            + ex_vis.cfg.num_hidden_layers * math.ceil(n_frames / 64))
+    check(launches == want, f"15: {launches} B1 launches, want {want}")
+    return launches
 
 
 def b3_times_of(torch, root: str) -> int:
@@ -1763,13 +2364,33 @@ def main(argv: list[str]) -> int:
     print(f"[12 fusion] kernel launches in phase 12: {fusion_launches} [{card}]",
           flush=True)
     check(not any(fusion_launches.values()), f"phase 12 launched {fusion_launches}")
+    torch.cuda.empty_cache()
+
+    from mertools_tpu_torch.encoders.bert import BertConfig
+    from mertools_tpu_torch.encoders.vit_clip import CLIPVisionConfig
+
+    ex_text, text_launches, b1_text = phase_text(torch, fa, BertConfig.large(), card)
+    ex_vis, vision_launches, b1_vis = phase_vision(torch, fa, CLIPVisionConfig(), card)
+    tri_launches = phase_trimodal(torch, fa, ex_text, ex_vis, card)
+    del ex_text, ex_vis
+    b1_paths = {"HuBERT (3)": launches, "MacBERT (13)": text_launches,
+                "CLIP (14)": vision_launches, "trimodal (15)": tri_launches}
+    text_ms = ", ".join(
+        f"{bucket}: {r['ms']:.4f} / {r['plain_ms']:.4f} / {r['library_ms']:.4f} / "
+        f"{r['bound_ms']:.4f}" for bucket, r in b1_text.items())
+    print(f"[15 trimodal] B1 launches by path: {b1_paths}; B1 at the new "
+          f"shapes (bf16 device ms, kernel / plain / SDPA / bound): MacBERT "
+          f"by bucket {text_ms}; CLIP 64 x 257 {b1_vis['ms']:.4f} / "
+          f"{b1_vis['plain_ms']:.4f} / {b1_vis['library_ms']:.4f} / "
+          f"{b1_vis['bound_ms']:.4f} [{card}]", flush=True)
 
     b, m = kres["bf16"], mres
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mertools_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "mertools_tpu/encoders/wav2vec2.py:160",
-        "launches": launches, "max_abs_err": b["max_abs_err"], "ms": b["ms"],
+        "launches": sum(b1_paths.values()), "max_abs_err": b["max_abs_err"],
+        "ms": b["ms"],
         "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"], "library_ms": b["library_ms"]}, {
         "name": "mel_power_fwd", "route": "cuda",

@@ -5,10 +5,11 @@
         --audio_dir=.../audio --save_dir=.../features --feature_level=UTTERANCE \
         --pretrain_dir=/path/to/hf/checkpoints
 
-Loads the HF checkpoint from ``{pretrain_dir}/{model_name}`` (or builds a
-seeded random encoder with ``--random_init``), reads wavs through the native
-frontend, and runs the bucketed batched pipeline on ``--device`` (default
-``cuda``, card index ``--gpu``). Output layout matches the reference:
+Loads the HF checkpoint from ``{pretrain_dir}/{model_name}`` without
+``transformers`` (or builds a seeded random encoder with ``--random_init``),
+reads wavs through the native frontend, and runs the bucketed batched
+pipeline on ``--device`` (default ``cuda``, card index ``--gpu``). Output
+layout matches the reference:
 ``{save_dir}/{model_name}-{UTT|FRA}/{clip}.npy``. The wav2vec2 / HuBERT /
 data2vec / WavLM family and Whisper are ported; the other encoders exit with
 the ROADMAP item that ports them.
@@ -24,6 +25,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from ..core.checkpoint import read_hf_config, read_hf_weights
 
 # model-name fragment -> the ROADMAP item that ports its extractor
 _NOT_PORTED = (
@@ -54,12 +57,9 @@ def load_whisper(model_name: str, pretrain_dir: str | None, random_init: bool):
                             num_heads=4, ffn_dim=128, vocab_size=128,
                             decoder_start_token_id=120, eos_token_id=121)
         return cfg, init_params(cfg, torch.Generator().manual_seed(0))
-    from transformers import WhisperModel as HFWhisper
-
     path = os.path.join(pretrain_dir, model_name) if pretrain_dir else model_name
-    model = HFWhisper.from_pretrained(path)
-    return (WhisperConfig.from_hf(model.config),
-            load_hf_state_dict(model.state_dict()))
+    return (WhisperConfig.from_config_json(read_hf_config(path)),
+            load_hf_state_dict(read_hf_weights(path)))
 
 
 def load_encoder(model_name: str, pretrain_dir: str | None, random_init: bool,
@@ -83,12 +83,9 @@ def load_encoder(model_name: str, pretrain_dir: str | None, random_init: bool,
                    else Wav2Vec2Config.base())
         return cfg, init_params(cfg, torch.Generator().manual_seed(0))
 
-    from transformers import AutoModel
-
     path = os.path.join(pretrain_dir, model_name) if pretrain_dir else model_name
-    model = AutoModel.from_pretrained(path)
-    return (Wav2Vec2Config.from_hf(model.config),
-            load_hf_state_dict(model.state_dict()))
+    return (Wav2Vec2Config.from_config_json(read_hf_config(path)),
+            load_hf_state_dict(read_hf_weights(path)))
 
 
 def main(argv=None):

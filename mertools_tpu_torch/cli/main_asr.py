@@ -38,18 +38,14 @@ def _write_csv(path, header, rows):
 
 
 def cmd_generate(args):
-    from transformers import WhisperModel as HFWhisper
-    from transformers import WhisperTokenizer
-
     from ..asr.pipeline import WhisperASR
+    from ..core.checkpoint import load_tokenizer, read_hf_config, read_hf_weights
     from ..io import wav as wav_io
     from ..encoders.whisper import WhisperConfig, load_hf_state_dict
 
-    hf = HFWhisper.from_pretrained(args.model)
-    cfg = WhisperConfig.from_hf(hf.config)
-    params = load_hf_state_dict(hf.state_dict())
-    del hf
-    tok = WhisperTokenizer.from_pretrained(args.model)
+    cfg = WhisperConfig.from_config_json(read_hf_config(args.model))
+    params = load_hf_state_dict(read_hf_weights(args.model))
+    tok = load_tokenizer(args.model)
     device = f"cuda:{args.gpu}" if args.device == "cuda" else "cpu"
     asr = WhisperASR(cfg, params, tokenizer=tok, batch_size=args.batch,
                      prompt=None if args.language is None else tuple(

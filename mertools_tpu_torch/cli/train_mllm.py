@@ -24,8 +24,6 @@ from __future__ import annotations
 import argparse
 import ast
 import dataclasses
-import glob
-import json
 import os
 
 
@@ -46,32 +44,13 @@ def apply_options(cfg: dict, options: list[str]) -> dict:
 
 def _load_llm_checkpoint(ckpt: str, lora_r: int):
     """(LLMConfig, HF-keyed state dict, tokenizer) of an HF causal-LM
-    directory: ``config.json`` and the weights through the port's loader;
-    ``transformers`` only for the tokenizer."""
-    import torch
-
+    directory, read by the port's checkpoint reader; ``transformers`` only
+    for the tokenizer."""
+    from ..core.checkpoint import load_tokenizer, read_hf_config, read_hf_weights
     from ..mllm.llm import LLMConfig, load_hf_state_dict
 
-    with open(os.path.join(ckpt, "config.json")) as f:
-        llm_cfg = LLMConfig.from_hf(json.load(f), lora_r=lora_r)
-    sd = {}
-    files = sorted(glob.glob(os.path.join(ckpt, "*.safetensors")))
-    if files:
-        from safetensors.torch import load_file
-
-        for fn in files:
-            sd.update(load_file(fn))
-    else:
-        for fn in sorted(glob.glob(os.path.join(ckpt, "pytorch_model*.bin"))):
-            sd.update(torch.load(fn, map_location="cpu", weights_only=True))
-    if not sd:
-        raise SystemExit(f"{ckpt}: no *.safetensors or pytorch_model*.bin")
-    try:
-        from transformers import AutoTokenizer
-    except ImportError:
-        raise SystemExit(f"llm_checkpoint {ckpt}: its tokenizer needs the "
-                         f"`transformers` package, which is not installed")
-    return llm_cfg, load_hf_state_dict(sd), AutoTokenizer.from_pretrained(ckpt)
+    return (LLMConfig.from_hf(read_hf_config(ckpt), lora_r=lora_r),
+            load_hf_state_dict(read_hf_weights(ckpt)), load_tokenizer(ckpt))
 
 
 def use_b3(device, llm_cfg) -> bool:

@@ -23,13 +23,32 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.checkpoint import with_class_defaults
 from ..ops.flash_attention import flash_attention
+
+# transformers' class defaults of the keys ``Wav2Vec2Config.from_hf`` reads,
+# by model type (a key a class lacks keeps from_hf's own fallback)
+_W2V_DEFAULTS = dict(
+    hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+    intermediate_size=3072, conv_dim=[512] * 7, conv_kernel=[10, 3, 3, 3, 3, 2, 2],
+    conv_stride=[5, 2, 2, 2, 2, 2, 2], conv_bias=False,
+    num_conv_pos_embedding_groups=16, layer_norm_eps=1e-5)
+_W2V_GROUP_NORM = dict(_W2V_DEFAULTS, feat_extract_norm="group",
+                       do_stable_layer_norm=False, num_conv_pos_embeddings=128)
+HF_CLASS_DEFAULTS = {
+    "wav2vec2": _W2V_GROUP_NORM,
+    "hubert": _W2V_GROUP_NORM,
+    "wavlm": dict(_W2V_GROUP_NORM, num_buckets=320, max_bucket_distance=800),
+    "data2vec-audio": dict(_W2V_DEFAULTS, num_conv_pos_embeddings=5,
+                           conv_pos_kernel_size=19),
+}
 
 
 @dataclass(frozen=True)
@@ -68,6 +87,12 @@ class Wav2Vec2Config:
         return cls(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
                    intermediate_size=4096, conv_bias=True,
                    feat_extract_norm="layer", do_stable_layer_norm=True)
+
+    @classmethod
+    def from_config_json(cls, raw: dict) -> "Wav2Vec2Config":
+        """From a checkpoint's ``config.json`` dict, every key it lacks
+        taken from ``transformers``' class defaults."""
+        return cls.from_hf(SimpleNamespace(**with_class_defaults(raw, HF_CLASS_DEFAULTS)))
 
     @classmethod
     def from_hf(cls, hf_cfg) -> "Wav2Vec2Config":
@@ -394,14 +419,20 @@ class Wav2Vec2Encoder(nn.Module):
 # parameters: HF checkpoints, the JAX package's Flax trees, random init
 # ---------------------------------------------------------------------------
 _HF_TRAINING_ONLY = ("masked_spec_embed",)
+# the body's prefix in a checkpoint saved with a head (e.g. HubertForCTC)
+_HF_PREFIXES = ("wav2vec2.", "hubert.", "data2vec_audio.", "wavlm.")
 
 
 def load_hf_state_dict(sd: dict) -> dict:
     """HF Wav2Vec2Model/HubertModel/Data2VecAudioModel/WavLMModel state dict
-    -> this module's state dict: the weight-normed positional conv
-    (``weight_g``/``weight_v`` or ``parametrizations.weight.original0/1``)
-    is folded to ``g * v / ||v||`` over dims (0, 1), and the training-only
-    ``masked_spec_embed`` is dropped. Load the result with ``strict=True``."""
+    (or a raw checkpoint saved with a head: the body's ``hubert.``-style
+    prefix is stripped and the head dropped) -> this module's state dict:
+    the weight-normed positional conv (``weight_g``/``weight_v`` or
+    ``parametrizations.weight.original0/1``) is folded to ``g * v / ||v||``
+    over dims (0, 1), and the training-only ``masked_spec_embed`` is
+    dropped. Load the result with ``strict=True``."""
+    pre = next((p for p in _HF_PREFIXES if any(k.startswith(p) for k in sd)), "")
+    sd = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
     out = {k: v for k, v in sd.items() if k not in _HF_TRAINING_ONLY}
     base = "encoder.pos_conv_embed.conv"
     for g_key, v_key in ((f"{base}.parametrizations.weight.original0",

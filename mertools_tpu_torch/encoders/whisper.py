@@ -20,13 +20,22 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.checkpoint import with_class_defaults
+
 LN_EPS = 1e-5  # torch's default, and the JAX modules' epsilon
+# transformers' class defaults of the keys ``WhisperConfig.from_hf`` reads
+HF_CLASS_DEFAULTS = {"whisper": dict(
+    d_model=384, encoder_layers=4, decoder_layers=4, encoder_attention_heads=6,
+    encoder_ffn_dim=1536, num_mel_bins=80, max_source_positions=1500,
+    max_target_positions=448, vocab_size=51865, decoder_start_token_id=50257,
+    eos_token_id=50256)}
 
 
 @dataclass(frozen=True)
@@ -48,6 +57,12 @@ class WhisperConfig:
         """``openai/whisper-large-v2`` geometry (its published config.json)."""
         return cls(d_model=1280, encoder_layers=32, decoder_layers=32,
                    num_heads=20, ffn_dim=5120)
+
+    @classmethod
+    def from_config_json(cls, raw: dict) -> "WhisperConfig":
+        """From a checkpoint's ``config.json`` dict, every key it lacks
+        taken from ``transformers``' class defaults."""
+        return cls.from_hf(SimpleNamespace(**with_class_defaults(raw, HF_CLASS_DEFAULTS)))
 
     @classmethod
     def from_hf(cls, hf):

@@ -126,3 +126,97 @@ def test_rejects_unknown_arguments_on_a_card(argv, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert chip_smoke.main(argv) == 2
     assert "unknown arguments" in capsys.readouterr().err
+
+
+def test_phase13_character_tokenizer_round_trips_the_span_probe():
+    """Phase 13b's stand-in tokenizer: [CLS] ... [SEP] inside MacBERT's
+    vocabulary, and the reference's span probe finds (1, -1) on it."""
+    import numpy as np
+
+    from mertools_tpu_torch.features.text import find_token_span
+
+    tok = chip_smoke.CharTokenizer()
+    assert find_token_span(tok) == (1, -1)
+    s = chip_smoke.CharTokenizer.sentence(np.random.default_rng(0), 96)
+    ids = tok(s)["input_ids"]
+    assert len(ids) == 96 and ids[0] == 101 and ids[-1] == 102
+    assert all(672 <= i < 21128 for i in ids[1:-1])
+    assert tok.decode(ids).replace(" ", "") == f"[CLS]{s}[SEP]"
+
+
+def test_phase13_corpus_fills_every_token_bucket():
+    import numpy as np
+
+    from mertools_tpu_torch.features.text import DEFAULT_TOKEN_BUCKETS
+
+    corpus = chip_smoke.text_corpus(np.random.default_rng(13))
+    assert len(corpus) == 520
+    batches = chip_smoke.text_batches(corpus, DEFAULT_TOKEN_BUCKETS)
+    assert [b for b, _ in batches] == [16, 16, 32, 32, 64, 64, 128, 256, 512]
+    assert [len(lens) for _, lens in batches] == [64] * 8 + [8]
+
+
+def test_phase13_b1_checks_are_at_the_shapes_the_extractor_gives_b1(monkeypatch):
+    """Phase 13 holds B1 to its plain version at ``text_batches``' (rows,
+    bucket, key lengths): the shapes ``TextExtractor`` gives B1 on the
+    corpus (recorded here from a narrow 1-layer BERT on the CPU)."""
+    import numpy as np
+    import torch
+
+    from mertools_tpu_torch.encoders import bert as tb
+    from mertools_tpu_torch.features import text as tt
+
+    seen = []
+
+    def record(q, k, v, kv_len):
+        seen.append((q.shape[0], q.shape[1], kv_len.tolist()))
+        return v
+
+    monkeypatch.setattr(tb, "flash_attention", record)
+    corpus = chip_smoke.text_corpus(np.random.default_rng(13))
+    cfg = tb.BertConfig(hidden_size=16, num_hidden_layers=1, num_attention_heads=1,
+                        intermediate_size=16)
+    tt.TextExtractor(cfg, tb.init_params(cfg, torch.Generator().manual_seed(0)),
+                     layer_ids=(-1,), batch_size=64, flash=True,
+                     device="cpu").extract(corpus, level="UTT")
+    want = chip_smoke.text_batches(corpus, tt.DEFAULT_TOKEN_BUCKETS)
+    assert seen == [(len(lens), bucket, lens) for bucket, lens in want]
+
+
+# worst-clip distances of the four modes (bf16+B1 vs bf16, bf16 vs fp32,
+# bf16+B1 vs fp32, fp32+B1 vs fp32) for UTT and FRA
+MACBERT = {"UTT": (1.373e-2, 1.662e-2, 1.622e-2, 1.791e-6),
+           "FRA": (2.956e-2, 2.509e-2, 2.578e-2, 3.076e-6)}
+
+
+def _distances(readings):
+    return {k: x for lv, xs in readings.items() for k, x in zip(
+        (("bf16_flash", "bf16", lv), ("bf16", "fp32", lv), ("bf16_flash", "fp32", lv),
+         ("fp32_flash", "fp32", lv)), xs)}
+
+
+@pytest.mark.parametrize("level, i, value, match", [
+    (None, None, None, None),                     # MacBERT's readings pass
+    ("UTT", 0, 5e-2, None),                       # bf16+B1 vs bf16 is not gated
+    ("UTT", 2, 2.1e-2, "UTT bf16\\+B1 vs fp32"),   # over 1.25 x 1.662e-2
+    ("FRA", 2, 3.2e-2, "FRA bf16\\+B1 vs fp32"),   # over 1.25 x 2.509e-2
+    ("FRA", 3, 2e-4, "FRA fp32\\+B1 vs fp32"),
+    ("UTT", 1, 3.1e-2, "UTT bf16 vs fp32"),       # over 3%
+])
+def test_feature_gates_hold_b1_to_the_inline_route(level, i, value, match):
+    readings = {lv: list(xs) for lv, xs in MACBERT.items()}
+    if level is not None:
+        readings[level][i] = value
+    if match is None:
+        chip_smoke.feature_gates(_distances(readings), "13 text")
+    else:
+        with pytest.raises(RuntimeError, match=match):
+            chip_smoke.feature_gates(_distances(readings), "13 text")
+
+
+def test_b1_bound_at_the_clip_shape():
+    """B 64 x T 257 x nh 16 x hd 64, every key valid: q, k, v and out are
+    33.7 MB each in bf16, 134.7 MB over 3.35 TB/s; 17.3 GFLOP take less."""
+    ms, by, flops = chip_smoke.b1_bound([257] * 64, "bf16", (64, 257, 16, 64))
+    assert by == "bytes" and round(ms, 4) == 0.0402
+    assert round(flops / 1e9, 1) == 17.3

@@ -118,6 +118,61 @@ def test_extract_audio_cli_whisper(tmp_path, capsys):
         assert os.path.getmtime(out_dir / f) == mtimes[f]
 
 
+def test_loaders_read_raw_checkpoint_directories(tmp_path):
+    """--pretrain_dir without transformers: the config.json and weights of
+    a save_pretrained HubertForCTC (its body under ``hubert.``) and
+    WhisperForConditionalGeneration (under ``model.``) give the configs and
+    state dicts transformers' own loaded models give."""
+    import dataclasses
+
+    import transformers as tr
+
+    from mertools_tpu_torch.cli.extract_audio import load_encoder, load_whisper
+    from mertools_tpu_torch.encoders import wav2vec2 as tw
+    from mertools_tpu_torch.encoders import whisper as tws
+
+    torch.manual_seed(0)
+    hub = tr.HubertForCTC(tr.HubertConfig(
+        hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+        intermediate_size=48, conv_dim=(16, 16), conv_kernel=(10, 3),
+        conv_stride=(5, 2), num_conv_pos_embeddings=16,
+        num_conv_pos_embedding_groups=2, vocab_size=12))
+    hub.save_pretrained(str(tmp_path / "hubert-tiny"))
+    whi = tr.WhisperForConditionalGeneration(tr.WhisperConfig(
+        d_model=32, encoder_layers=1, decoder_layers=1,
+        encoder_attention_heads=2, decoder_attention_heads=2,
+        encoder_ffn_dim=48, decoder_ffn_dim=48, vocab_size=64,
+        max_source_positions=1500, max_target_positions=32,
+        decoder_start_token_id=50, eos_token_id=51, pad_token_id=51))
+    whi.save_pretrained(str(tmp_path / "whisper-tiny"))
+
+    for (cfg, sd), (want_cfg, want_sd) in (
+            (load_encoder("hubert-tiny", str(tmp_path), False),
+             (tw.Wav2Vec2Config.from_hf(hub.config),
+              tw.load_hf_state_dict(hub.hubert.state_dict()))),
+            (load_whisper("whisper-tiny", str(tmp_path), False),
+             (tws.WhisperConfig.from_hf(whi.config),
+              tws.load_hf_state_dict(whi.model.state_dict())))):
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(want_cfg)
+        assert sorted(sd) == sorted(want_sd)
+        for k in want_sd:
+            assert torch.equal(sd[k], want_sd[k]), k
+
+    # a config.json without the keys whose class default differs from the
+    # port's own fallback reads as transformers reads it ("group" norm)
+    import json
+
+    cfg_path = tmp_path / "hubert-tiny" / "config.json"
+    raw = json.loads(cfg_path.read_text())
+    for key in ("feat_extract_norm", "do_stable_layer_norm", "conv_bias"):
+        del raw[key]
+    cfg_path.write_text(json.dumps(raw))
+    cfg, _ = load_encoder("hubert-tiny", str(tmp_path), False)
+    want = tw.Wav2Vec2Config.from_hf(tr.AutoConfig.from_pretrained(tmp_path / "hubert-tiny"))
+    assert cfg.feat_extract_norm == "group"
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+
+
 def test_dataset_missing_from_registry_exits(tmp_path, monkeypatch):
     monkeypatch.delenv("MERTOOLS_TPU_CONFIG", raising=False)
     with pytest.raises(SystemExit, match="not in the path registry"):

@@ -1,0 +1,149 @@
+"""The port's extract_text and extract_vision CLIs against the JAX package's
+on the same checkpoint directories, written by ``transformers``'
+``save_pretrained`` (a BertForMaskedLM of 4 layers with a BertTokenizer
+from a temporary vocab.txt; a CLIPVisionModelWithProjection of 2 layers at
+56 px): the ``.npy`` files agree within 1e-4 (fp32, ``--device cpu``); the
+branches not ported exit naming their ROADMAP item."""
+
+import csv
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from mertools_tpu_torch.cli import extract_text as tet
+from mertools_tpu_torch.cli import extract_vision as tev
+
+torch.set_num_threads(1)
+
+TOL = 1e-4
+CHARS = "今天天气真好我很高兴你为什么生气了吗不知道"
+
+
+@pytest.fixture(scope="module")
+def bert_dir(tmp_path_factory):
+    import transformers as tr
+
+    d = tmp_path_factory.mktemp("ckpt") / "tiny-macbert"
+    d.mkdir()
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + sorted(set(CHARS))
+    (d / "vocab.txt").write_text("\n".join(vocab) + "\n", encoding="utf-8")
+    tr.BertTokenizer(str(d / "vocab.txt")).save_pretrained(str(d))
+    cfg = tr.BertConfig(hidden_size=16, num_hidden_layers=4,
+                        num_attention_heads=2, intermediate_size=32,
+                        vocab_size=len(vocab), max_position_embeddings=64)
+    torch.manual_seed(0)
+    tr.BertForMaskedLM(cfg).save_pretrained(str(d))
+    return d
+
+
+@pytest.fixture(scope="module")
+def clip_dir(tmp_path_factory):
+    import transformers as tr
+
+    d = tmp_path_factory.mktemp("ckpt") / "clip-tiny"
+    cfg = tr.CLIPVisionConfig(hidden_size=32, num_hidden_layers=2,
+                              num_attention_heads=2, intermediate_size=64,
+                              image_size=56, patch_size=14, projection_dim=24)
+    torch.manual_seed(0)
+    tr.CLIPVisionModelWithProjection(cfg).save_pretrained(str(d))
+    return d
+
+
+def _transcripts(path):
+    rng = np.random.default_rng(0)
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["name", "chinese"])
+        for i, n in enumerate((5, 12, 3, 30)):
+            w.writerow([f"sample_{i:08d}",
+                        "".join(rng.choice(list(CHARS), size=n))])
+        w.writerow(["sample_empty", ""])
+
+
+def _read(d):
+    return {f[:-4]: np.load(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+
+
+def _assert_same(out, ref):
+    assert sorted(out) == sorted(ref)
+    for n in ref:
+        assert out[n].shape == ref[n].shape, n
+        assert np.abs(out[n] - ref[n]).max() < TOL, n
+
+
+@pytest.mark.parametrize("level", ["UTTERANCE", "FRAME"])
+def test_extract_text_matches_jax_cli(bert_dir, tmp_path, level):
+    from mertools_tpu.cli import extract_text as jet
+
+    _transcripts(tmp_path / "trans.csv")
+    flags = ["--model_name", bert_dir.name, "--pretrain_dir", str(bert_dir.parent),
+             "--trans_path", str(tmp_path / "trans.csv"),
+             "--feature_level", level]
+    jet.main(flags + ["--save_dir", str(tmp_path / "jax")])
+    tet.main(flags + ["--save_dir", str(tmp_path / "port"), "--device", "cpu"])
+    sub = f"{bert_dir.name}-{'UTT' if level == 'UTTERANCE' else 'FRA'}"
+    ref, out = _read(tmp_path / "jax" / sub), _read(tmp_path / "port" / sub)
+    _assert_same(out, ref)
+    assert len(out) == 5 and not out["sample_empty"].any()
+    assert out["sample_empty"].shape == ((16,) if level == "UTTERANCE" else (1, 16))
+
+
+@pytest.mark.parametrize("level", ["UTTERANCE", "FRAME"])
+def test_extract_vision_matches_jax_cli(clip_dir, tmp_path, level):
+    from mertools_tpu.cli import extract_vision as jev
+
+    faces = tmp_path / "faces"
+    faces.mkdir()
+    rng = np.random.default_rng(1)
+    for i, t in enumerate((2, 5, 9)):
+        np.save(faces / f"clip{i}.npy",
+                rng.integers(0, 256, size=(t, 112, 112, 3)).astype(np.uint8))
+    flags = ["--model_name", clip_dir.name, "--pretrain_dir", str(clip_dir.parent),
+             "--face_dir", str(faces), "--feature_level", level,
+             "--max_frames", "8"]
+    jev.main(flags + ["--save_dir", str(tmp_path / "jax")])
+    tev.main(flags + ["--save_dir", str(tmp_path / "port"), "--device", "cpu"])
+    sub = f"{clip_dir.name}-{'UTT' if level == 'UTTERANCE' else 'FRA'}"
+    out = _read(tmp_path / "port" / sub)
+    _assert_same(out, _read(tmp_path / "jax" / sub))
+    assert out["clip2"].shape == ((24,) if level == "UTTERANCE" else (8, 24))
+
+
+def _config_only(tmp_path, model_type):
+    d = tmp_path / f"m-{model_type}"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps({"model_type": model_type}))
+    return str(d)
+
+
+@pytest.mark.parametrize("model_type,item", [
+    ("llama", "A9, the decoder-LLM text branch"), ("qwen2", "A9"),
+    ("chatglm", "A9, the text encoder zoo"), ("gpt2", "A9"),
+    ("deberta-v2", "A9")])
+def test_extract_text_exits_naming_the_roadmap_item(tmp_path, model_type, item):
+    with pytest.raises(SystemExit, match=item):
+        tet.main(["--model_name", _config_only(tmp_path, model_type),
+                  "--trans_path", "t.csv", "--save_dir", str(tmp_path),
+                  "--device", "cpu"])
+
+
+def test_extract_text_finetuned_ckpt_exits_naming_a17(tmp_path):
+    with pytest.raises(SystemExit, match="A17"):
+        tet.main(["--model_name", "m", "--trans_path", "t.csv", "--save_dir",
+                  str(tmp_path), "--finetuned_ckpt", str(tmp_path)])
+
+
+@pytest.mark.parametrize("name,extra,item", [
+    ("videomae-base", [], "A9"), ("dinov2-large", [], "A9"),
+    ("data2vec-vision-base", [], "A9"), ("eva-clip-g", [], "A9"),
+    ("siglip-base", [], "A9"), ("emonet", [], "A9"), ("manet", [], "A9"),
+    ("resnet50-ferplus", [], "A9"), ("senet50-msceleb", [], "A9"),
+    ("clip-vit-large-patch14", ["--compute_dtype", "int8"], "A17"),
+    ("clip-vit-large-patch14", ["--finetuned_ckpt", "x"], "A17")])
+def test_extract_vision_exits_naming_the_roadmap_item(tmp_path, name, extra, item):
+    with pytest.raises(SystemExit, match=item):
+        tev.main(["--model_name", name, "--face_dir", str(tmp_path),
+                  "--save_dir", str(tmp_path), "--device", "cpu", *extra])
