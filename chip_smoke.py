@@ -12,8 +12,8 @@ heads, vocab 32000), the MERBench fusion trainer (attention fusion, hidden
 256, 5-fold CV) at MER2023's split sizes, MacBERT-large text features
 (vocab 21128, hidden 1024, 24 layers, 16 heads, 512 positions) and
 CLIP-ViT-L/14 vision features (224 px, patch 14, 257 tokens, hidden 1024,
-24 layers, projection 768), and MER2023's trimodal pipeline — and checks
-them:
+24 layers, projection 768), MER2023's trimodal pipeline, and the face
+frontend that makes its face stores from frames — and checks them:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
@@ -83,8 +83,20 @@ them:
    crops, get HuBERT-large, MacBERT-large and CLIP-L UTT features, then
    ``main_release`` attention fusion on the three, on the card and on the
    CPU; as in 12c the card is held to the CPU from the same weights and
-   the two whole runs' distance is printed. B1's launches are printed by
-   path (phases 3, 13, 14 and 15) and summed in the kernels line.
+   the two whole runs' distance is printed;
+16. faces: 40 clips of 12-36 drawn 640 x 360 RGB frames (phase 15's names;
+   a face drifting 4 px a frame, every fourth clip with a mouth occluder):
+   (a) ``preprocess detect-faces``, the Haar route (host detection and
+   tracking, the warp on the card), gated against the drawn truth (usable
+   geometry, core-face IoU) and on the native evaluator having run; (b)
+   ``crop_video``'s device warp against its host warp; (c) BlazeFace at
+   width 32 against its plain functional forward and the CPU, its frames/s
+   and idle share, and ``detect-faces --detector_params``; (d)
+   ``blur_frames`` at rates 2, 4 and 8 against its plain version and the
+   CPU; (e) CLIP-L UTT features of (a)'s face stores, then ``main_release``
+   with phase 15's HuBERT and MacBERT features, card against CPU. B1's
+   launches are printed by path (phases 3, 13, 14, 15 and 16) and summed in
+   the kernels line.
 
     python3 chip_smoke.py --b3-times DIR
 
@@ -2024,8 +2036,10 @@ def cli_text_main(torch, cfg, sd: dict, rows: dict, dev: str) -> float:
 
 
 def face_clips(rng, n: int) -> dict:
-    """OpenFace's face crops: ``n`` clips of 50-250 frames (2-10 s at 25
-    fps) of 112 x 112 x 3 BGR uint8."""
+    """Random stand-ins for OpenFace's face crops, the synthetic source of
+    phases 14 and 15: ``n`` clips of 50-250 frames (2-10 s at 25 fps) of
+    112 x 112 x 3 BGR uint8. Phase 16 makes real crops, with the face
+    frontend from drawn frames."""
     return {f"clip{i:02d}": rng.integers(0, 256, (int(t), 112, 112, 3), np.uint8)
             for i, t in enumerate(rng.integers(50, 251, n))}
 
@@ -2143,21 +2157,75 @@ def phase_vision(torch, fa, cfg, card, dev: str = "cuda"):
     return exs["bf16_flash"], sum(launches.values()), b1
 
 
+def release_card_vs_cpu(torch, d: str, fdir: str, corpora: dict, feats,
+                        dev: str, label: str) -> dict:
+    """``main_release`` MER2023 attention fusion (trimodal, hidden 256,
+    dropout 0, 3 epochs, 5 folds) on the UTT features ``feats`` (audio,
+    text, video) under ``fdir``, on the card and on the CPU. As in 12c, the
+    card is held to the CPU from the same weights: two whole runs drift
+    apart as far as Adam lets rounding grow, which on these features can
+    pass 1e-4, so their distance is only returned. Returns the runs, their
+    seconds and the three distances."""
+    from mertools_tpu_torch.cli import main_release
+    from mertools_tpu_torch.core.config import Args
+    from mertools_tpu_torch.core.globals_mer import EMO2IDX_MER
+    from mertools_tpu_torch.data import labels
+    from mertools_tpu_torch.data.dataset import FeatureDataset
+
+    labels.write_label_archive(os.path.join(d, "label.npz"), corpora)
+    sets = {split: FeatureDataset.build(
+        list(c), np.array([EMO2IDX_MER[v["emo"]] for v in c.values()]),
+        np.array([v["val"] for v in c.values()], np.float32),
+        *(os.path.join(fdir, f) for f in feats))
+        for split, c in corpora.items()}
+    runs, secs, files = {}, {}, {}
+    for leg, where in (("card", dev), ("cpu", "cpu")):
+        save = os.path.join(d, f"saved_{leg}")
+        t0 = time.perf_counter()
+        runs[leg] = main_release.main(fusion_flags(
+            fdir, os.path.join(d, "label.npz"), save, feats,
+            "--hidden_dim=256", "--dropout=0", "--lr=1e-3", "--epochs=3",
+            "--device", where))
+        secs[leg] = time.perf_counter() - t0
+        files[leg] = sorted(re.sub(r"_[0-9.]+\.npz$", "", f) for f in
+                            os.listdir(os.path.join(f"{save}-trimodal", "result")))
+    for leg, fs in files.items():
+        check([f.split("_")[0] for f in fs] == ["cv", "test1"], f"{label} {leg} wrote {fs}")
+    got = runs["card"].test_results["test1"]["emoprobs"]
+    check(got.shape == (len(corpora["test1"]), 6) and bool(np.isfinite(got).all()),
+          f"{label} test1 logits {got.shape} or non-finite")
+    args = Args(model="attention", feat_type="utt", hidden_dim=256, dropout=0.0,
+                lr=1e-3, l2=1e-5, grad_clip=-1.0, batch_size=32, epochs=3,
+                num_folder=5, output_dim1=6, output_dim2=1, metric_name="emoval")
+    d_grad, d_eval = same_weights_check(torch, args, sets, dev,
+                                        np.random.default_rng(0), epochs=3)
+    check(d_grad <= FUSION_TOL, f"{label} card vs CPU gradients {d_grad}")
+    check(d_eval <= FUSION_TOL, f"{label} card vs CPU test logits {d_eval}")
+    return dict(runs=runs, secs=secs, d_grad=d_grad, d_eval=d_eval,
+                d_runs=fusion_card_vs_cpu(runs["card"], runs["cpu"], "test1"))
+
+
+def release_line(r: dict) -> str:
+    """How :func:`release_card_vs_cpu` went, as phases 15 and 16 print it."""
+    return (f"main_release MER2023 attention (trimodal, hidden 256, dropout 0, 3 "
+            f"epochs, 5 folds of 30 train clips, test1 10 clips) "
+            f"{r['secs']['card']:.1f} s on the card, {r['secs']['cpu']:.1f} s on "
+            f"the CPU; cv {r['runs']['card'].cv_str} (CPU {r['runs']['cpu'].cv_str}); "
+            f"card vs CPU from the same weights (as 12c): a step's gradients "
+            f"{r['d_grad']:.3e}, test1 logits and valence of the card's model "
+            f"after 3 epochs {r['d_eval']:.3e} of max|cpu| (limit {FUSION_TOL}); "
+            f"the two main_release runs' test1 outputs {r['d_runs']:.3e} apart")
+
+
 def phase_trimodal(torch, fa, ex_text, ex_vis, card, dev: str = "cuda"):
     """15: MER2023's trimodal pipeline on 12a's 40 clips, each with a seeded
     transcript and face crops: HuBERT-large UTT (``extract_audio``),
     MacBERT-large UTT (phase 13's extractor through the text CLI's loop) and
     CLIP-L UTT (phase 14's through the vision CLI's loop), then
-    ``main_release`` attention fusion on the three, on the card and on the
-    CPU. As in 12c, the card is held to the CPU from the same weights: two
-    whole runs drift apart as far as Adam lets rounding grow, which on
-    these features can pass 1e-4, so their distance is printed only."""
+    :func:`release_card_vs_cpu`. Returns B1's launches and what phase 16
+    takes across: the label corpora and the audio and text features."""
     from mertools_tpu_torch.cli import extract_audio, extract_text, extract_vision
-    from mertools_tpu_torch.cli import main_release
-    from mertools_tpu_torch.core.config import Args
-    from mertools_tpu_torch.core.globals_mer import EMO2IDX_MER, feature_dir_name
-    from mertools_tpu_torch.data import labels
-    from mertools_tpu_torch.data.dataset import FeatureDataset
+    from mertools_tpu_torch.core.globals_mer import feature_dir_name
 
     rng = np.random.default_rng(12)   # 12a's wavs and labels
     pcm = {f"clip{i:02d}": (rng.normal(size=int(s * SR)) * 3000).astype(np.int16)
@@ -2204,54 +2272,468 @@ def phase_trimodal(torch, fa, ex_text, ex_vis, card, dev: str = "cuda"):
         secs["vision"] = time.perf_counter() - t0
         launches = fa.flash_attention.launches
         dims = {f: np.load(os.path.join(fdir, f, "clip00.npy")).shape for f in feats}
-        labels.write_label_archive(os.path.join(d, "label.npz"), corpora)
-        sets = {split: FeatureDataset.build(
-            list(c), np.array([EMO2IDX_MER[v["emo"]] for v in c.values()]),
-            np.array([v["val"] for v in c.values()], np.float32),
-            *(os.path.join(fdir, f) for f in feats))
-            for split, c in corpora.items()}
-        runs, files = {}, {}
-        for leg, where in (("card", dev), ("cpu", "cpu")):
-            save = os.path.join(d, f"saved_{leg}")
-            t0 = time.perf_counter()
-            runs[leg] = main_release.main(fusion_flags(
-                fdir, os.path.join(d, "label.npz"), save, feats,
-                "--hidden_dim=256", "--dropout=0", "--lr=1e-3", "--epochs=3",
-                "--device", where))
-            secs[leg] = time.perf_counter() - t0
-            files[leg] = sorted(re.sub(r"_[0-9.]+\.npz$", "", f) for f in
-                                os.listdir(os.path.join(f"{save}-trimodal", "result")))
-    for leg, fs in files.items():
-        check([f.split("_")[0] for f in fs] == ["cv", "test1"], f"15 {leg} wrote {fs}")
-    got = runs["card"].test_results["test1"]["emoprobs"]
-    check(got.shape == (10, 6) and bool(np.isfinite(got).all()),
-          f"15 test1 logits {got.shape} or non-finite")
-    d_runs = fusion_card_vs_cpu(runs["card"], runs["cpu"], "test1")
-    args = Args(model="attention", feat_type="utt", hidden_dim=256, dropout=0.0,
-                lr=1e-3, l2=1e-5, grad_clip=-1.0, batch_size=32, epochs=3,
-                num_folder=5, output_dim1=6, output_dim2=1, metric_name="emoval")
-    d_grad, d_eval = same_weights_check(torch, args, sets, dev,
-                                        np.random.default_rng(0), epochs=3)
+        handoff = {"corpora": corpora, "features": {
+            f: {n: np.load(os.path.join(fdir, f, f"{n}.npy")) for n in names}
+            for f in feats[:2]}}
+        r = release_card_vs_cpu(torch, d, fdir, corpora, feats, dev, "15")
     print(f"[15 trimodal] 40 clips: extract_audio HuBERT-large (bf16, int16 "
           f"wire) {secs['audio']:.1f} s incl. init, MacBERT-large (bf16+B1, "
           f"transcripts of 8-96 tokens) {secs['text']:.2f} s, CLIP-L (bf16+B1, "
           f"50-250 face frames a clip) {secs['vision']:.2f} s; UTT widths "
           f"{ {f: s for f, s in dims.items()} }; B1 launches {launches}; "
-          f"main_release MER2023 attention (trimodal, hidden 256, dropout 0, 3 "
-          f"epochs, 5 folds of 30 train clips, test1 10 clips) {secs['card']:.1f} s "
-          f"on the card, {secs['cpu']:.1f} s on the CPU; cv {runs['card'].cv_str} "
-          f"(CPU {runs['cpu'].cv_str}); card vs CPU from the same weights (as "
-          f"12c): a step's gradients {d_grad:.3e}, test1 logits and valence of "
-          f"the card's model after 3 epochs {d_eval:.3e} of max|cpu| (limit "
-          f"{FUSION_TOL}); the two main_release runs' test1 outputs "
-          f"{d_runs:.3e} apart [{card}]", flush=True)
-    check(d_grad <= FUSION_TOL, f"15 card vs CPU gradients {d_grad}")
-    check(d_eval <= FUSION_TOL, f"15 card vs CPU test logits {d_eval}")
+          f"{release_line(r)} [{card}]", flush=True)
     # one text batch of 40 sentences and the face frames in batches of 64,
     # one launch a layer
     want = (ex_text.cfg.num_hidden_layers
             + ex_vis.cfg.num_hidden_layers * math.ceil(n_frames / 64))
     check(launches == want, f"15: {launches} B1 launches, want {want}")
+    return launches, handoff
+
+
+# ------------------------------------------------------------ faces (16)
+FACE_FRAME = (360, 640)            # H, W of phase 16's RGB frames
+FACE_GATES = {"usable": 0.95, "iou": 0.75}   # PARITY.md: 1.00 and 0.85-0.86
+# card vs CPU on BlazeFace's scores and raw boxes, max |card - cpu| /
+# max |cpu| (fp32, TF32 off)
+BLAZE_TOL = 1e-4
+
+
+def draw_faces(torch, H: int, W: int, cx, cy, s: float, gen, noise: float = 3.0,
+               contrast: float = 1.0, device="cuda"):
+    """The port-side copy of ``draw_face`` in
+    ``tests/test_face_frontend_fidelity.py``, batched over frames on
+    ``device`` in float64: a synthetic Haar-detectable face of size ``s``
+    centred at (cx[t], cy[t]) on frame t, noise from ``gen``, then scipy's
+    ``gaussian_filter`` (sigma 3 s / 100, radius 4 sigma, mirrored edges).
+    Returns (the (T, H, W) gray frames, not clipped, and the ground-truth
+    core-face boxes (T, 4) [x, y, w, h] as numpy)."""
+    f64 = torch.float64
+    cxt = torch.as_tensor(np.asarray(cx, np.float64), device=device)[:, None, None]
+    cyt = torch.as_tensor(np.asarray(cy, np.float64), device=device)[:, None, None]
+    yy = torch.arange(H, dtype=f64, device=device)[None, :, None]
+    xx = torch.arange(W, dtype=f64, device=device)[None, None, :]
+    img = torch.full((len(cx), H, W), 200.0, dtype=f64, device=device)
+
+    def ellipse(x0, y0, rx, ry, val):
+        img[((xx - x0) / rx) ** 2 + ((yy - y0) / ry) ** 2 <= 1] = 200.0 + (val - 200.0) * contrast
+
+    ellipse(cxt, cyt, 0.55 * s, 0.75 * s, 195)
+    for ex in (cxt - 0.25 * s, cxt + 0.25 * s):
+        ellipse(ex, cyt - 0.20 * s, 0.14 * s, 0.06 * s, 90)
+        ellipse(ex, cyt - 0.03 * s, 0.08 * s, 0.08 * s, 40)
+    ellipse(cxt, cyt + 0.35 * s, 0.08 * s, 0.12 * s, 160)
+    ellipse(cxt, cyt + 0.55 * s, 0.22 * s, 0.08 * s, 95)
+    if noise:
+        img = img + torch.randn(img.shape, generator=gen, dtype=f64, device=device) * noise
+    sigma = 3.0 * s / 100
+    r = int(4.0 * sigma + 0.5)
+    k = np.exp(-0.5 / sigma ** 2 * np.arange(-r, r + 1) ** 2)
+    k = (k / k.sum()).tolist()
+    for dim in (1, 2):            # scipy filters axis 0, then axis 1
+        n = img.shape[dim]
+        pad = torch.cat([img.narrow(dim, 0, r).flip(dim), img,
+                         img.narrow(dim, n - r, r).flip(dim)], dim)
+        img = sum(w * pad.narrow(dim, j, n) for j, w in enumerate(k))
+    cxn, cyn = np.asarray(cx, np.float64), np.asarray(cy, np.float64)
+    gt = np.stack([cxn - 0.45 * s, cyn - 0.35 * s, np.full_like(cxn, 0.9 * s),
+                   np.full_like(cxn, 1.1 * s)], 1)
+    return img, gt
+
+
+def face_iou(a, b) -> float:
+    """IoU of two [x, y, w, h] boxes."""
+    iw = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
+    ih = max(0.0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
+    inter = iw * ih
+    return inter / (a[2] * a[3] + b[2] * b[3] - inter)
+
+
+def face_video_clips(torch, names, frames_range=(12, 37), seed: int = 16,
+                     device="cuda") -> dict:
+    """Phase 16's clips: for each name, 12-36 RGB uint8 frames of
+    ``FACE_FRAME`` with a drawn face (size 90-150 px, noise 3) drifting 4 px
+    a frame with +-3 px jitter, the protocol of
+    ``test_video_track_through_occlusion``; every fourth clip carries the
+    severe mouth occluder on its middle third. Returns {name: (frames,
+    ground-truth core-face boxes)}."""
+    H, W = FACE_FRAME
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for i, name in enumerate(names):
+        T = int(rng.integers(*frames_range))
+        s = float(rng.uniform(90, 150))
+        cx0 = rng.uniform(0.55 * s + 8, W - 0.55 * s - 8 - 4.0 * T)
+        cy0 = rng.uniform(0.75 * s + 8, H - 0.75 * s - 8)
+        cx = cx0 + 4.0 * np.arange(T) + rng.integers(-3, 4, T)
+        cy = cy0 + rng.integers(-3, 4, T)
+        img, gt = draw_faces(torch, H, W, cx, cy, s, gen, device=device)
+        if i % 4 == 3:
+            for t in range(T // 3, 2 * T // 3):
+                y0, x0 = int(cy[t] + 0.35 * s), int(cx[t] - 0.3 * s)
+                img[t, y0: y0 + int(0.25 * s), x0: x0 + int(0.6 * s)] = 30
+        frames = img.clamp(0, 255).to(torch.uint8)[..., None].expand(-1, -1, -1, 3)
+        out[name] = (frames.cpu().numpy(), gt)
+    return out
+
+
+def haar_gates(tracks: list, truths: list) -> tuple[float, float, int]:
+    """Phase 16a's gates on the Haar route's tracks against the drawn
+    truth: the share of frames with usable geometry (a finite box) and the
+    median IoU of their calibrated core-face boxes. Returns (usable share,
+    median IoU, frames re-measured from the eyes)."""
+    from mertools_tpu_torch.ops.face_haar import core_face_box
+
+    usable, ious, eyes = [], [], 0
+    for tr, gt in zip(tracks, truths):
+        eyes += int((tr["source"] == 2).sum())
+        for box, g in zip(tr["boxes"], gt):
+            ok = bool(np.isfinite(box).all())
+            usable.append(ok)
+            if ok:
+                ious.append(face_iou(core_face_box(box), g))
+    rate = float(np.mean(usable))
+    med = float(np.median(ious)) if ious else 0.0
+    check(rate >= FACE_GATES["usable"], f"16a usable-geometry rate {rate}")
+    check(med >= FACE_GATES["iou"], f"16a median core-face IoU {med}")
+    return rate, med, eyes
+
+
+def evaluator_gate(calls: dict) -> None:
+    """Phase 16a: the native Haar evaluator ran and the numpy one did not."""
+    check(calls["native"] > 0 and calls["numpy"] == 0,
+          f"16a Haar evaluator calls {calls}: want native only")
+
+
+def warp_gate(dev_crops: dict, host_crops: dict) -> float:
+    """Phase 16b: the device warp within one level of the host warp on
+    every clip. Returns the share of pixels that differ."""
+    n_diff = n_all = 0
+    for name, ref in host_crops.items():
+        got = dev_crops[name]
+        check(got.shape == ref.shape, f"16b {name}: {got.shape} vs {ref.shape}")
+        diff = np.abs(got.astype(int) - ref)
+        check(int(diff.max()) <= 1, f"16b {name}: device vs host warp {diff.max()} levels")
+        n_diff += int((diff > 0).sum())
+        n_all += diff.size
+    return n_diff / n_all
+
+
+# BlazeFace's blocks as the JAX package's Flax module lists them: (name,
+# stride); widths come from the weights
+BLAZE_BLOCKS = (("b0_0", 1), ("b0_1", 1), ("d1", 2), ("b1_0", 1), ("b1_1", 1),
+                ("d2", 2), ("b2_0", 1), ("b2_1", 1), ("d3", 2), ("b3_0", 1),
+                ("b3_1", 1))
+
+
+def blaze_plain(torch, sd: dict, x):
+    """BlazeFace's forward written out with functional ops, each
+    convolution padded by Flax's "SAME" rule (total max((out - 1) * stride
+    + k - in, 0), the smaller half first): the plain version phase 16c holds
+    ``face_detect.BlazeFace`` to. x: (B, 128, 128, 3) [0,1]."""
+    F = torch.nn.functional
+
+    def conv(x, pre, stride=1, groups=1):
+        w = sd[f"{pre}.weight"]
+        pads = []
+        for n in (x.shape[3], x.shape[2]):            # W, then H, as F.pad
+            total = max((-(-n // stride) - 1) * stride + w.shape[-1] - n, 0)
+            pads += [total // 2, total - total // 2]
+        return F.conv2d(F.pad(x, pads), w, sd[f"{pre}.bias"], stride=stride,
+                        groups=groups)
+
+    x = F.relu(conv(x.permute(0, 3, 1, 2), "stem", 2))
+    feats = []
+    for name, stride in BLAZE_BLOCKS:
+        y = conv(conv(x, f"{name}.dw", stride, x.shape[1]), f"{name}.pw")
+        if stride == 2:
+            x = F.max_pool2d(x, 2, 2)
+        x = F.relu(y + F.pad(x, (0, 0, 0, 0, 0, y.shape[1] - x.shape[1])))
+        if name in ("b2_1", "b3_1"):
+            feats.append(x)
+    scores, boxes = [], []
+    for feat, tag in zip(feats, ("s16", "s8")):
+        scores.append(conv(feat, f"score_{tag}").permute(0, 2, 3, 1).reshape(len(feat), -1))
+        boxes.append(conv(feat, f"box_{tag}").permute(0, 2, 3, 1).reshape(len(feat), -1, 14))
+    return torch.cat(scores, 1), torch.cat(boxes, 1)
+
+
+def blaze_gate(card: tuple, plain: tuple, cpu: tuple) -> tuple[float, float]:
+    """Phase 16c: ``BlazeFace``'s scores and raw boxes on the card within
+    ``BLAZE_TOL`` of max|plain| of :func:`blaze_plain`'s on the card, and of
+    max|cpu| of its own on the CPU, with the same best anchor a frame.
+    Returns the two distances."""
+    out = []
+    for ref, what in ((plain, "the plain forward"), (cpu, "the CPU")):
+        d = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(card, ref))
+        check(d <= BLAZE_TOL, f"16c BlazeFace vs {what}: {d}")
+        check(bool((card[0].argmax(1) == ref[0].argmax(1)).all()),
+              f"16c BlazeFace best anchors differ from {what}'s")
+        out.append(d)
+    return tuple(out)
+
+
+def blur_plain(torch, frames, rate: int):
+    """The pyramid blur by ``F.interpolate`` (bilinear, antialiased, half
+    pixel centres), which equals ``jax.image.resize``'s linear resize up to
+    float32 rounding: the plain version phase 16d holds ``blur_frames`` to.
+    frames: (T, H, W, C) uint8 tensor."""
+    F = torch.nn.functional
+    x = frames.float().permute(0, 3, 1, 2)
+    steps = int(math.log2(rate))
+    for _ in range(steps):
+        x = F.interpolate(x, size=(x.shape[2] // 2, x.shape[3] // 2),
+                          mode="bilinear", antialias=True, align_corners=False)
+    for _ in range(steps):
+        x = F.interpolate(x, size=(x.shape[2] * 2, x.shape[3] * 2),
+                          mode="bilinear", antialias=True, align_corners=False)
+    return torch.round(x).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+
+
+def blur_gate(got: np.ndarray, plain: np.ndarray, cpu: np.ndarray, rate: int) -> None:
+    """Phase 16d: the card's blur within one level of the plain version's
+    at the same rate (a blur at another rate lies tens of levels away), and
+    of the CPU's on the frames both ran."""
+    for ref, what in ((plain, "the plain version"), (cpu, "the CPU")):
+        check(got[: len(ref)].shape == ref.shape,
+              f"16d rate {rate}: {got.shape} vs {what}'s {ref.shape}")
+        d = int(np.abs(got[: len(ref)].astype(int) - ref).max())
+        check(d <= 1, f"16d rate {rate}: blur vs {what} {d} levels")
+
+
+def to_flax_tree(state_dict: dict) -> dict:
+    """``BlazeFace.state_dict()`` -> the Flax parameter tree the JAX
+    package saves (the inverse of ``face_detect.from_flax``)."""
+    tree = {}
+    for key, v in state_dict.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        a = v.detach().cpu().numpy()
+        node["kernel" if leaf == "weight" else "bias"] = (
+            a.transpose(2, 3, 1, 0) if leaf == "weight" else a)
+    return tree
+
+
+def phase_faces(torch, fa, ex_vis, handoff: dict, card, dev: str = "cuda",
+                frames_range=(12, 37)):
+    """16: the face frontend on 40 drawn clips of 640 x 360 (phase 15's
+    names) of 12-36 frames, written as frame .npy files (the host Haar
+    route's cost set the frame count: PERF.md §4): (a) ``preprocess detect-faces``'s
+    Haar route with its defaults (host detection and tracking, the warp on
+    the card), gated against the drawn truth; (b) ``crop_video``'s device
+    warp against its host warp on the same landmarks; (c) BlazeFace at
+    width 32 from a seeded init, card against CPU, its frames/s and idle
+    share, and ``detect-faces --detector_params`` on 4 clips; (d)
+    ``blur_frames`` at rates 2, 4 and 8, card against CPU; (e) CLIP-L UTT
+    features (phase 14's bf16+B1 extractor) of (a)'s stores, and
+    ``main_release`` on them with phase 15's HuBERT and MacBERT features.
+    Returns B1's launches in (e)."""
+    from mertools_tpu_torch.cli import extract_vision, preprocess
+    from mertools_tpu_torch.core.device import resolve_device, upload
+    from mertools_tpu_torch.data.corruption import blur_frames
+    from mertools_tpu_torch.ops import face_detect as fd
+    from mertools_tpu_torch.ops import face_haar, viola_jones
+    from mertools_tpu_torch.ops.image import resize_separable
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    names = sorted(handoff["features"][next(iter(handoff["features"]))])
+    t_phase = t0 = time.perf_counter()
+    clips = face_video_clips(torch, names, frames_range, device=dev)
+    n_frames = sum(len(f) for f, _ in clips.values())
+    secs = {"draw": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as d:
+        vids, faces = os.path.join(d, "frames"), os.path.join(d, "faces")
+        os.makedirs(vids)
+        for n, (frames, _) in clips.items():
+            np.save(os.path.join(vids, f"{n}.npy"), frames)
+
+        # a: the Haar route, its tracks recorded in the CLI's clip order and
+        # the seconds spent in the window evaluator and the grouping summed
+        tracks, track_video = [], face_haar.HaarFaceFrontend.track_video
+        parts = {"_detect_single_scale_native": 0.0, "group_rectangles": 0.0}
+        timed = {n: getattr(viola_jones, n) for n in parts}
+
+        def recording(self, frames):
+            tracks.append(track_video(self, frames))
+            return tracks[-1]
+
+        def timing(name):
+            def run(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return timed[name](*args, **kw)
+                finally:
+                    parts[name] += time.perf_counter() - t
+            return run
+
+        face_haar.HaarFaceFrontend.track_video = recording
+        for n in parts:
+            setattr(viola_jones, n, timing(n))
+        viola_jones.EVALUATOR_CALLS.update(native=0, numpy=0)
+        try:
+            t0 = time.perf_counter()
+            preprocess.main(["detect-faces", "--video_root", vids,
+                             "--save_root", faces, "--device", dev])
+            secs["haar"] = time.perf_counter() - t0
+        finally:
+            face_haar.HaarFaceFrontend.track_video = track_video
+            for n, fn in timed.items():
+                setattr(viola_jones, n, fn)
+        calls = dict(viola_jones.EVALUATOR_CALLS)
+        evaluator_gate(calls)
+        rate, med, eyes = haar_gates(tracks, [gt for _, gt in clips.values()])
+        stores = {n: np.load(os.path.join(faces, f"{n}.npy")) for n in names}
+        for n, st in stores.items():
+            check(st.dtype == np.uint8 and st.shape == (len(clips[n][0]), 112, 112, 3),
+                  f"16a store {n}: {st.dtype} {st.shape}")
+        print(f"[16 faces] a: detect-faces Haar route (defaults, warp on "
+              f"{dev}) on {len(clips)} clips of {FACE_FRAME[1]} x {FACE_FRAME[0]} "
+              f"RGB, {min(len(f) for f, _ in clips.values())}-"
+              f"{max(len(f) for f, _ in clips.values())} frames ({n_frames} "
+              f"frames; every 4th clip with the severe mouth occluder on its "
+              f"middle third; drawn on the card in {secs['draw']:.1f} s): "
+              f"{secs['haar']:.1f} s = {n_frames / secs['haar']:.1f} frames/s "
+              f"with {os.cpu_count()} CPU cores; usable geometry {rate:.3f} "
+              f"(gate {FACE_GATES['usable']}), median core-face IoU {med:.3f} "
+              f"(gate {FACE_GATES['iou']}), {eyes} frames re-measured from the "
+              f"eye pair; Haar evaluator calls {calls}; of the route's "
+              f"seconds, the native window evaluator "
+              f"{parts['_detect_single_scale_native']:.1f} s, the rectangle "
+              f"grouping (Python) {parts['group_rectangles']:.1f} s, the rest "
+              f"(pyramid, integral images, gray, tracking, warp, file IO) "
+              f"{secs['haar'] - sum(parts.values()):.1f} s [{card}]", flush=True)
+
+        # b: the device warp against the host warp on the same landmarks
+        fe = face_haar.HaarFaceFrontend()
+        crops, ms = {"device": {}, "host": {}}, {"device": 0.0, "host": 0.0}
+        for backend in ("device", "host"):
+            fe.track_video = lambda f: tracks[0]
+            fe.crop_video(clips[names[0]][0], warp_backend=backend, device=dev)
+            for n, tr in zip(names, tracks):
+                fe.track_video = lambda f, tr=tr: tr
+                sync()
+                t0 = time.perf_counter()
+                crops[backend][n], _ = fe.crop_video(clips[n][0], warp_backend=backend,
+                                                     device=dev)
+                ms[backend] += (time.perf_counter() - t0) * 1e3 / len(names)
+        share = warp_gate(crops["device"], crops["host"])
+        for n in names:
+            check(np.array_equal(crops["device"][n], stores[n]),
+                  f"16b {n}: crop_video differs from the CLI's store")
+        print(f"[16 faces] b: crop_video on a's landmarks, device warp vs host "
+              f"warp: max 1 level, {share:.2e} of the values differ; "
+              f"{ms['device']:.2f} ms a clip on the device (uint8 upload, "
+              f"Umeyama, warp, download), {ms['host']:.2f} ms on the host "
+              f"(numpy twins) [{card}]", flush=True)
+
+        # c: BlazeFace at width 32 from a seeded init, fp32 with TF32 off
+        torch.manual_seed(16)
+        sd = fd.BlazeFace(32).state_dict()
+        dets = {"card": fd.FaceDetector(sd, 32, device=dev),
+                "cpu": fd.FaceDetector(sd, 32, device="cpu")}
+        stacked = np.concatenate([f for f, _ in clips.values()])
+        outs = {}
+        for leg, det in dets.items():
+            x = upload(stacked[:256], det.device)
+            with torch.no_grad():
+                small = resize_separable(x.float() / 255.0, fd.INPUT_SIZE,
+                                         fd.INPUT_SIZE, "bilinear")
+                outs[leg] = tuple(o.cpu() for o in det.model(small))
+                if leg == "card":
+                    sd_card = {k: v.to(det.device) for k, v in sd.items()}
+                    outs["plain"] = tuple(o.cpu() for o in blaze_plain(torch, sd_card, small))
+        d_plain, d_blaze = blaze_gate(outs["card"], outs["plain"], outs["cpu"])
+        det = dets["card"]
+        preprocess.blazeface_align(det, stacked[:256])
+        sync()
+        t0 = time.perf_counter()
+        _, probs = preprocess.blazeface_align(det, stacked)
+        sync()
+        secs["blaze"] = time.perf_counter() - t0
+        check(probs.shape == (n_frames,) and bool(np.isfinite(probs).all()),
+              f"16c probabilities {probs.shape} or non-finite")
+        prof = ""
+        if dev == "cuda":
+            wall, *p = device_profile(torch, lambda: preprocess.blazeface_align(
+                det, stacked[:256]))
+            prof = (f"; profile of one batch of 256: wall {wall:.1f} ms, "
+                    f"{profile_line(*p, wall)}")
+        pfile = os.path.join(d, "blazeface.npz")
+        np.savez(pfile, params=np.array(to_flax_tree(sd), dtype=object))
+        four = os.path.join(d, "four")
+        os.makedirs(four)
+        for n in names[:4]:
+            os.symlink(os.path.join(vids, f"{n}.npy"), os.path.join(four, f"{n}.npy"))
+        out4 = os.path.join(d, "blaze_faces")
+        t0 = time.perf_counter()
+        preprocess.main(["detect-faces", "--video_root", four, "--save_root", out4,
+                         "--detector_params", pfile, "--device", dev])
+        secs["blaze_cli"] = time.perf_counter() - t0
+        for n in names[:4]:
+            aligned, p = preprocess.blazeface_align(det, clips[n][0])
+            keep = p >= 0.5
+            want = aligned[keep] if keep.any() else aligned[:1] * 0
+            want = np.clip(want[..., ::-1], 0, 255).astype(np.uint8)
+            got = np.load(os.path.join(out4, f"{n}.npy"))
+            check(got.shape == want.shape and int(np.abs(got.astype(int) - want).max()) <= 1,
+                  f"16c detect-faces --detector_params {n}: {got.shape} vs {want.shape}")
+        print(f"[16 faces] c: BlazeFace width 32 (seeded init, fp32, TF32 off), "
+              f"128 x 128 inputs resized on the card from uint8 uploads: "
+              f"on 256 frames, scores and raw boxes vs the plain functional "
+              f"forward on the card {d_plain:.3e} of max|plain|, vs the CPU "
+              f"{d_blaze:.3e} of max|cpu| (limit {BLAZE_TOL}), best anchors "
+              f"equal; detect + align (blazeface_align, batches of 256) "
+              f"{n_frames} frames in {secs['blaze']:.2f} s = "
+              f"{n_frames / secs['blaze']:.1f} frames/s{prof}; detect-faces "
+              f"--detector_params on 4 clips {secs['blaze_cli']:.2f} s incl. "
+              f"loading, equal to the library [{card}]", flush=True)
+
+        # d: the pyramid blur against its plain version and the CPU's
+        clip = clips[names[0]][0]
+        blur_ms = {}
+        for rate in (2, 4, 8):
+            blur_frames(clip[:4], rate, device=dev)
+            sync()
+            t0 = time.perf_counter()
+            got = blur_frames(clip, rate, device=dev)
+            blur_ms[rate] = (time.perf_counter() - t0) * 1e3
+            plain = blur_plain(torch, upload(clip, resolve_device(dev, fp32=True)), rate)
+            blur_gate(got, plain.cpu().numpy(), blur_frames(clip[:16], rate, device="cpu"),
+                      rate)
+        print(f"[16 faces] d: blur_frames on a clip of {len(clip)} frames of "
+              f"{FACE_FRAME[1]} x {FACE_FRAME[0]}: "
+              + ", ".join(f"rate {r} {t:.1f} ms" for r, t in blur_ms.items())
+              + f" (uint8 upload, resizes, download); within 1 level of the "
+              f"plain version (F.interpolate) on the card and of the CPU's on "
+              f"the first 16 frames [{card}]", flush=True)
+
+        # e: CLIP-L on the detected crops, then the trimodal release
+        fdir = os.path.join(d, "features")
+        for f, feats in handoff["features"].items():
+            os.makedirs(os.path.join(fdir, f))
+            for n, a in feats.items():
+                np.save(os.path.join(fdir, f, f"{n}.npy"), a)
+        vision = "clip-vit-large-patch14-UTT"
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        extract_vision._run_extraction(argparse.Namespace(
+            face_dir=faces, model_name="clip-vit-large-patch14", save_dir=fdir,
+            feature_level="UTTERANCE", profile=None), ex_vis)
+        secs["vision"] = time.perf_counter() - t0
+        launches = fa.flash_attention.launches
+        want = ex_vis.cfg.num_hidden_layers * math.ceil(
+            sum(min(len(s), 64) for s in stores.values()) / 64)
+        check(launches == want, f"16e: {launches} B1 launches, want {want}")
+        r = release_card_vs_cpu(torch, d, fdir, handoff["corpora"],
+                                [*handoff["features"], vision], dev, "16e")
+    print(f"[16 faces] e: CLIP-L UTT (bf16+B1) of a's {len(stores)} stores "
+          f"{secs['vision']:.2f} s, B1 launches {launches} (B 64 x 257); "
+          f"with phase 15's HuBERT and MacBERT features: {release_line(r)} "
+          f"[{card}]", flush=True)
+    print(f"[16 faces] phase 16 took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
     return launches
 
 
@@ -2371,14 +2853,18 @@ def main(argv: list[str]) -> int:
 
     ex_text, text_launches, b1_text = phase_text(torch, fa, BertConfig.large(), card)
     ex_vis, vision_launches, b1_vis = phase_vision(torch, fa, CLIPVisionConfig(), card)
-    tri_launches = phase_trimodal(torch, fa, ex_text, ex_vis, card)
-    del ex_text, ex_vis
+    tri_launches, handoff = phase_trimodal(torch, fa, ex_text, ex_vis, card)
+    del ex_text
+    torch.cuda.empty_cache()
+    face_launches = phase_faces(torch, fa, ex_vis, handoff, card)
+    del ex_vis, handoff
     b1_paths = {"HuBERT (3)": launches, "MacBERT (13)": text_launches,
-                "CLIP (14)": vision_launches, "trimodal (15)": tri_launches}
+                "CLIP (14)": vision_launches, "trimodal (15)": tri_launches,
+                "faces (16)": face_launches}
     text_ms = ", ".join(
         f"{bucket}: {r['ms']:.4f} / {r['plain_ms']:.4f} / {r['library_ms']:.4f} / "
         f"{r['bound_ms']:.4f}" for bucket, r in b1_text.items())
-    print(f"[15 trimodal] B1 launches by path: {b1_paths}; B1 at the new "
+    print(f"[16 faces] B1 launches by path: {b1_paths}; B1 at the new "
           f"shapes (bf16 device ms, kernel / plain / SDPA / bound): MacBERT "
           f"by bucket {text_ms}; CLIP 64 x 257 {b1_vis['ms']:.4f} / "
           f"{b1_vis['plain_ms']:.4f} / {b1_vis['library_ms']:.4f} / "

@@ -112,3 +112,15 @@ def read_wav_16k(path: str) -> np.ndarray:
     """Read and resample to the pipeline's canonical 16 kHz mono."""
     wav, sr = read_wav(path)
     return resample(wav, sr, 16000)
+
+
+def write_wav(path: str, wav: np.ndarray, sr: int = 16000) -> None:
+    """Write mono float32 [-1, 1] as 16-bit PCM WAV."""
+    import struct
+
+    pcm = (np.clip(np.asarray(wav, np.float32), -1.0, 1.0)
+           * 32767.0).astype("<i2").tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, sr, sr * 2, 2, 16))
+        f.write(b"data" + struct.pack("<I", len(pcm)) + pcm)

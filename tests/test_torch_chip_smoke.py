@@ -220,3 +220,149 @@ def test_b1_bound_at_the_clip_shape():
     ms, by, flops = chip_smoke.b1_bound([257] * 64, "bf16", (64, 257, 16, 64))
     assert by == "bytes" and round(ms, 4) == 0.0402
     assert round(flops / 1e9, 1) == 17.3
+
+
+# ------------------------------------------------------------------ phase 16
+def test_phase16_draw_is_the_fidelity_tests_draw_face():
+    """The port-side copy of draw_face, batched in torch: the same frames
+    (noise off, float64) and ground-truth boxes."""
+    import numpy as np
+    import torch
+    from test_face_frontend_fidelity import draw_face
+
+    cx, cy = np.array([60.0, 71.5]), np.array([80.0, 77.0])
+    got, gt = chip_smoke.draw_faces(torch, 170, 150, cx, cy, 96.0, None, noise=0.0,
+                                    contrast=0.85, device="cpu")
+    for t in range(2):
+        ref, ref_gt = draw_face(170, 150, cx[t], cy[t], 96.0, 0.85)
+        assert np.abs(got[t].numpy() - ref).max() <= 1e-9
+        np.testing.assert_allclose(gt[t], ref_gt, rtol=1e-12)
+
+
+def _track_clip():
+    """Four drawn RGB frames and a track whose eye landmarks are the drawn
+    pupils."""
+    import numpy as np
+    import torch
+
+    cx, cy, s = np.array([70.0, 74, 78, 82]), np.array([90.0, 90, 91, 89]), 80.0
+    img, gt = chip_smoke.draw_faces(torch, 180, 160, cx, cy, s,
+                                    torch.Generator().manual_seed(0), device="cpu")
+    frames = img.clamp(0, 255).to(torch.uint8)[..., None].expand(-1, -1, -1, 3).numpy()
+    lms = np.stack([np.stack([cx - 0.25 * s, cy - 0.03 * s], 1),
+                    np.stack([cx + 0.25 * s, cy - 0.03 * s], 1)], 1).astype(np.float32)
+    track = {"lms": lms, "boxes": gt, "source": np.ones(4, np.int8),
+             "detected": np.ones(4, bool), "acquired": True}
+    return frames, track, gt
+
+
+def test_phase16_warp_gate_fails_on_a_one_pixel_shift(monkeypatch):
+    import pytest
+
+    from mertools_tpu_torch.ops import face_align, face_haar
+
+    frames, track, _ = _track_clip()
+    fe = face_haar.HaarFaceFrontend()
+    fe.track_video = lambda f: track
+    host, _ = fe.crop_video(frames, warp_backend="host")
+    dev, _ = fe.crop_video(frames, warp_backend="device", device="cpu")
+    assert chip_smoke.warp_gate({"c": dev}, {"c": host}) < 0.1
+    warp = face_align.warp_affine
+
+    def shifted(images, affines, out_h=112, out_w=112):   # one pixel in x
+        return warp(images, affines + affines.new_tensor([[0, 0, 1.0], [0, 0, 0]]),
+                    out_h, out_w)
+
+    monkeypatch.setattr(face_align, "warp_affine", shifted)
+    dev, _ = fe.crop_video(frames, warp_backend="device", device="cpu")
+    with pytest.raises(RuntimeError, match="16b"):
+        chip_smoke.warp_gate({"c": dev}, {"c": host})
+
+
+def test_phase16_blaze_gate_fails_with_symmetric_stride2_padding(monkeypatch):
+    import numpy as np
+    import pytest
+    import torch
+
+    from mertools_tpu_torch.ops import face_detect as fd
+
+    torch.manual_seed(16)
+    model = fd.BlazeFace(16).eval()
+    sd = model.state_dict()
+    x = torch.from_numpy(np.random.default_rng(0).random((2, 128, 128, 3),
+                                                         np.float32))
+    with torch.no_grad():
+        plain = chip_smoke.blaze_plain(torch, sd, x)
+        out = model(x)
+        assert chip_smoke.blaze_gate(out, plain, out) == (0.0, 0.0)
+        monkeypatch.setitem(fd._SAME, 2, (2, 2, 2, 2))
+        out = model(x)
+    with pytest.raises(RuntimeError, match="plain forward"):
+        chip_smoke.blaze_gate(out, plain, out)
+
+
+def test_phase16_blur_gate_fails_on_the_wrong_rate():
+    import numpy as np
+    import pytest
+    import torch
+
+    from mertools_tpu_torch.data.corruption import blur_frames
+
+    frames = np.random.default_rng(4).integers(0, 256, (2, 48, 64, 3), np.uint8)
+    for rate in (2, 4, 8):
+        plain = chip_smoke.blur_plain(torch, torch.from_numpy(frames), rate).numpy()
+        got = blur_frames(frames, rate, device="cpu")
+        chip_smoke.blur_gate(got, plain, got[:1], rate)
+        wrong = {2: 4, 4: 8, 8: 2}[rate]
+        with pytest.raises(RuntimeError, match="plain version"):
+            chip_smoke.blur_gate(blur_frames(frames, wrong, device="cpu"),
+                                 plain, got[:1], rate)
+
+
+def test_phase16_evaluator_gate_fails_when_numpy_takes_over(monkeypatch):
+    import numpy as np
+    import pytest
+
+    from mertools_tpu_torch.ops import viola_jones as vj
+
+    casc = vj.load_cascade(vj.find_cascade(vj.EYE))
+    img = np.random.default_rng(0).integers(0, 255, (40, 40)).astype(np.float64)
+    for backend in ("auto", "numpy"):
+        monkeypatch.setattr(vj, "EVALUATOR_CALLS", {"native": 0, "numpy": 0})
+        vj.detect_multiscale(img, casc, min_size=20, backend=backend)
+        if backend == "auto":
+            chip_smoke.evaluator_gate(vj.EVALUATOR_CALLS)
+        else:
+            with pytest.raises(RuntimeError, match="native only"):
+                chip_smoke.evaluator_gate(vj.EVALUATOR_CALLS)
+
+
+def test_phase16_haar_gates_fail_on_lost_or_misplaced_geometry():
+    import numpy as np
+    import pytest
+
+    from mertools_tpu_torch.ops.face_haar import CORE_FACE_CAL
+
+    _, track, gt = _track_clip()
+    dx, dy, sw, sh = CORE_FACE_CAL            # raw boxes whose core box is gt
+    raw = np.stack([gt[:, 2] / sw, gt[:, 3] / sh], 1)
+    track["boxes"] = np.concatenate([gt[:, :2] - raw * [dx, dy], raw], 1)
+    rate, med, _ = chip_smoke.haar_gates([track], [gt])
+    assert rate == 1.0 and med > 0.999
+    lost = dict(track, boxes=np.where(np.arange(4)[:, None] < 1, np.nan, track["boxes"]))
+    with pytest.raises(RuntimeError, match="usable"):
+        chip_smoke.haar_gates([lost], [gt])
+    off = dict(track, boxes=track["boxes"] + [40.0, 0, 0, 0])
+    with pytest.raises(RuntimeError, match="IoU"):
+        chip_smoke.haar_gates([off], [gt])
+
+
+def test_phase16_npz_tree_reads_back_through_from_flax():
+    import torch
+
+    from mertools_tpu_torch.ops import face_detect as fd
+
+    sd = fd.BlazeFace(16).state_dict()
+    back = fd.from_flax(chip_smoke.to_flax_tree(sd))
+    assert sorted(back) == sorted(sd)
+    assert all(torch.equal(back[k], sd[k]) for k in sd)

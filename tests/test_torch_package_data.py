@@ -1,7 +1,9 @@
 """What the port reads from its own package directory at run time is
 packaged: every source the kernel build compiles (``csrc/*.cu`` and the
-shared ``csrc/*.cuh``) and the fusion trainer's hyperparameter spaces
-(``train/model_tune.yaml``) match a pattern of pyproject.toml's
+shared ``csrc/*.cuh``), the fusion trainer's hyperparameter spaces
+(``train/model_tune.yaml``), the Haar evaluator's source
+(``native/merhaar.cpp``) and the face frontend's two cascades
+(``ops/cascades/*.xml``) match a pattern of pyproject.toml's
 ``[tool.setuptools.package-data]``."""
 
 import fnmatch
@@ -10,7 +12,7 @@ import tomllib
 from pathlib import Path
 
 from mertools_tpu_torch.cli import main_release
-from mertools_tpu_torch.ops import _kernels
+from mertools_tpu_torch.ops import _kernels, viola_jones
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "mertools_tpu_torch"
@@ -39,3 +41,10 @@ def test_the_tune_yaml_is_package_data():
     assert tune.exists()
     assert _packaged(tune)
     assert not _packaged(PKG / "train" / "loop.py")
+
+
+def test_the_haar_source_and_cascades_are_package_data(monkeypatch):
+    monkeypatch.delenv("MERTOOLS_CASCADE_DIR", raising=False)
+    assert _packaged(viola_jones.HAAR_SOURCE)
+    for name in (viola_jones.FRONTALFACE, viola_jones.EYE):
+        assert _packaged(Path(viola_jones.find_cascade(name)))
