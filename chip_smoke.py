@@ -56,7 +56,7 @@ frontend that makes its face stores from frames — and checks them:
    (hidden 256, 5 folds), on the card and on the CPU, test1 logits compared;
    (b) ``main_release`` at MER2023's split sizes (3373 train, test1/2/3 of
    411/412/834) on seeded class-separable UTT features at 1024/1024/768,
-   10 epochs: cv WAF, seconds a fold and an epoch, steps/s, and the device
+   3 epochs: cv WAF, seconds a fold and an epoch, steps/s, and the device
    idle share of one epoch from a profile; (c) ``run_cv`` on frm_align
    features with LSTM encoders, card against CPU from the same weights (a
    step's gradients, a trained model's test logits) beside how far two
@@ -96,7 +96,26 @@ frontend that makes its face stores from frames — and checks them:
    CPU; (e) CLIP-L UTT features of (a)'s face stores, then ``main_release``
    with phase 15's HuBERT and MacBERT features, card against CPU. B1's
    launches are printed by path (phases 3, 13, 14, 15 and 16) and summed in
-   the kernels line.
+   the kernels line;
+17. the fusion zoo at MER2023's split sizes, each model at the
+   hyperparameters ``--seed=0`` draws from ``train/model_tune.yaml``, every
+   run cut to 1 epoch and 2 folds (``ZOO_EPOCHS``, ``ZOO_FOLDS``): (a)
+   ``main_release`` for lf_dnn, tfn, lmf, misa and mmim on UTT stores
+   (1024/1024/768), for ef_lstm, mfn, graph_mfn, mfm, mctn and mult on
+   frm_align stores with 12c's frame spans, and mult on frm_unalign: cv
+   WAF and emoval, the first fold's seconds and training steps/s, and the
+   device idle share of the run's last epoch under the profiler; (b) each
+   model against the CPU from the same weights as 12c (dropout off, MFM's
+   prior drawn once for both);
+   (c) top-N fusion (``--fusion_topn=6``, AVT, ``attention_topn``) on 18
+   UTT stores at their encoders' widths, the same numbers; (d)
+   ``cli.sweep --n_search=3 --n_repeat=2`` over 12b's attention flags,
+   checked to carry the winner's hyperparameters into the repeats and to
+   print a JSON line. It launches none of the port's kernels.
+
+    python3 chip_smoke.py --fusion-zoo
+
+runs phase 17 alone (its kernel counts included), and
 
     python3 chip_smoke.py --b3-times DIR
 
@@ -115,6 +134,7 @@ prints no result. It imports neither JAX nor ``transformers``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -1499,7 +1519,7 @@ def fusion_features(rng, emos, dim: int) -> np.ndarray:
 
 
 def phase_fusion_mer2023(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
-                         epochs: int = 10):
+                         epochs: int = 3):
     """12b: ``main_release`` at MER2023's split sizes on seeded synthetic UTT
     features at the published widths, 5 folds; then one epoch of a fold
     under the profiler."""
@@ -1594,13 +1614,17 @@ def phase_fusion_mer2023(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
     return res
 
 
-def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2):
+def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2,
+                       prepare=None, floor: float = 0.0):
     """The card against the CPU where both start from the same weights (a
     fresh fold model, seed 0): every gradient of one training step on the
     first batch of ``sets["train"]``, then the test1 logits and valence of
     the model the card trained for ``epochs`` epochs (batch orders from
-    ``rng``), evaluated on both. Returns the two max |card - cpu| /
-    max |cpu|."""
+    ``rng``), evaluated on both. ``prepare(model)`` runs on both copies
+    first (phase 17: dropout off, MFM's prior fixed). Returns the two
+    max |card - cpu| / max |cpu|; a gradient's max |cpu| counts as at least
+    ``floor`` of the largest over the model (phase 17: 1, the largest
+    itself; see ``ZOO_GRAD_FLOOR``)."""
     from mertools_tpu_torch.core.device import resolve_device
     from mertools_tpu_torch.data.dataset import epoch_plan
     from mertools_tpu_torch.train import loop
@@ -1611,6 +1635,9 @@ def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2):
     sample = {k: v[idx[0]] for k, v in sets["train"].arrays().items()}
     models = {"cpu": loop.init_model(args, sample, torch.Generator().manual_seed(0))}
     models["card"] = copy.deepcopy(models["cpu"]).to(devs["card"])
+    for m in models.values():
+        if prepare is not None:
+            prepare(m)
     data = {leg: {s: loop.Split.upload(ds, d) for s, ds in sets.items()}
             for leg, d in devs.items()}
     grads = {}
@@ -1622,7 +1649,8 @@ def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2):
         loss.backward()
         grads[leg] = {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
         m.zero_grad(set_to_none=True)
-    d_grad = max(float((grads["card"][n] - g).abs().max() / g.abs().max())
+    top = floor * max(float(g.abs().max()) for g in grads["cpu"].values())
+    d_grad = max(float((grads["card"][n] - g).abs().max() / max(float(g.abs().max()), top))
                  for n, g in grads["cpu"].items())
     opt = loop.ClippedAdam(models["card"].parameters(), lr=1e-3)
     for _ in range(epochs):
@@ -2737,6 +2765,470 @@ def phase_faces(torch, fa, ex_vis, handoff: dict, card, dev: str = "cuda",
     return launches
 
 
+# ------------------------------------------------------ fusion zoo (17)
+ZOO_UTT = ("lf_dnn", "tfn", "lmf", "misa", "mmim")
+ZOO_FRM = ("ef_lstm", "mfn", "graph_mfn", "mfm", "mctn", "mult")
+# epochs a main_release run (the reference runs 100), cut to fit the phase
+ZOO_EPOCHS = {"utt": 1, "frm": 1, "topn": 1, "sweep": 1}
+# the card-vs-CPU step's gradients are held to the model's largest |cpu|
+# gradient (see same_weights_check): MulT's on frm_unalign carry fp32
+# rounding on the CPU alone (fp32 against fp64 from the same weights) of
+# 9.0e-3 of trans_l_with_a.fc1_5.weight's own max, 3.1e-5 of the largest
+ZOO_GRAD_FLOOR = 1.0
+# folds of a main_release run: MER2023's protocol has 5 (the loader's
+# num_folder); fewer is a cut of the phase's time, set on the loader class
+ZOO_FOLDS = {"utt": 2, "frm": 2, "topn": 2, "sweep": 2}
+# 12c's frame spans (store, width, fewest and most frames) at feat_scale 6,
+# written as main_release's compression leaves them: ceil(T / 6) frames a
+# clip, read at --feat_scale=1 (frm_align) or 2 (frm_unalign: 12 / 6), so
+# the models see 12c's lengths from a sixth of the bytes
+FRM_FEATURES = (("chinese-hubert-large-FRA", 1024, 100, 500),
+                ("chinese-macbert-large-FRA", 1024, 16, 64),
+                ("clip-vit-large-patch14-FRA", 768, 50, 250))
+FRM_SCALE = 6
+# the UTT width of each encoder in the top 6 of the rank lists, from the
+# port's or the JAX package's encoder configs, else as noted
+TOPN_WIDTHS = {
+    "whisper-base": 512,                    # mertools_tpu/encoders/whisper.py:30
+    "chinese-wav2vec2-large": 1024,         # mertools_tpu/encoders/wav2vec2.py:69
+    "wavlm-large": 1024,                    # the same large geometry
+    "whisper-large-v2": 1280,               # phase 6's d_model
+    "chinese-hubert-base": 768,             # mertools_tpu/encoders/wav2vec2.py:36
+    "chinese-hubert-large": 1024,           # phase 3
+    "xlm-roberta-large": 1024,              # BERT-large geometry (published config)
+    "chinese-roberta-wwm-ext": 768,         # mertools_tpu_torch/encoders/bert.py:56
+    "chinese-macbert-base": 768,            # the same
+    "chinese-macbert-large": 1024,          # BertConfig.large (phase 13)
+    "chinese-roberta-wwm-ext-large": 1024,  # the same
+    "baichuan2-7b-base": 4096,              # Baichuan2-7B's published hidden_size
+    "eva02-base-patch14-224": 768,          # mertools_tpu/encoders/vit.py:38
+    "manet": 1024,                          # mertools_tpu/features/vision_zoo.py:268
+    "resnet-msceleb": 2048,                 # mertools_tpu/encoders/resnet.py:112
+    "dinov2-large": 1024,                   # ViT-L hidden (published config)
+    "clip-vit-base-patch32": 512,           # mertools_tpu_torch/encoders/vit_clip.py:42
+    "clip-vit-large-patch14": 768,          # projection 768 (phase 14)
+}
+
+
+@contextlib.contextmanager
+def mer2023_folds(n: int):
+    """MER2023's loader makes ``n`` folds while the block runs."""
+    from mertools_tpu_torch.data import loaders
+
+    was = loaders.MER2023Loader.num_folder
+    loaders.MER2023Loader.num_folder = n
+    try:
+        yield
+    finally:
+        loaders.MER2023Loader.num_folder = was
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept out of the log (each
+    ``main_release`` prints its args and every fold); returns the result
+    and what it printed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def write_store(root: str, names, rows) -> None:
+    """One ``.npy`` a clip under ``root`` (the reference layout)."""
+    from mertools_tpu_torch.data import feature_store
+
+    for name, row in zip(names, rows):
+        feature_store.write_feature(root, name, row)
+
+
+def frm_features(rng, emos, dim: int, lo: int, hi: int, scale: int = FRM_SCALE):
+    """Ragged (ceil(T / scale), dim) class-separable frames a clip, T drawn
+    from [lo, hi]: a seeded centre a class plus unit noise cut from one
+    seeded bank."""
+    centres = rng.normal(size=(6, dim)).astype(np.float32) * 0.3
+    bank = rng.normal(size=(4096, dim)).astype(np.float32)
+    lens = -(-rng.integers(lo, hi + 1, len(emos)) // scale)
+    offs = rng.integers(0, len(bank) - lens.max(), len(emos))
+    return [centres[e] + bank[o:o + n] for e, o, n in zip(emos, offs, lens)]
+
+
+def zoo_flags(d: str, model: str, feat_type: str, epochs: int, dev: str, *extra):
+    """``main_release`` flags for MER2023 on phase 17's stores under ``d``."""
+    feats = ([f for f, _ in FUSION_FEATURES] if feat_type == "utt"
+             else [f for f, *_ in FRM_FEATURES])
+    scale = {"utt": [], "frm_align": ["--feat_scale=1"],
+             "frm_unalign": ["--feat_scale=2"]}[feat_type]
+    return ["--dataset=MER2023", f"--audio_feature={feats[0]}",
+            f"--text_feature={feats[1]}", f"--video_feature={feats[2]}",
+            f"--feat_type={feat_type}", f"--model={model}", "--seed=0",
+            "--batch_size=32", f"--epochs={epochs}",
+            f"--features_root={os.path.join(d, 'features')}",
+            f"--label_path={os.path.join(d, 'label.npz')}",
+            f"--save_root={os.path.join(d, 'saved', f'{model}_{feat_type}')}",
+            *scale, *extra, "--device", dev]
+
+
+def seed0_hp(model: str) -> dict:
+    """The hyperparameters ``main_release --seed=0`` draws for ``model``."""
+    from mertools_tpu_torch.cli import main_release
+    from mertools_tpu_torch.core.config import load_yaml, random_select
+
+    return random_select(load_yaml(os.path.normpath(main_release._TUNE_YAML))[model],
+                         np.random.default_rng(0))
+
+
+def epoch_busy(torch, fn) -> tuple[float, float, int]:
+    """One call of ``fn`` under ``torch.profiler`` tracing the card only:
+    (wall ms, device-busy ms by :func:`busy_ms`, device events). Reads the
+    profiler's raw events, which an epoch of a recurrent model yields by
+    the hundred thousand."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    starts, ends = [], []
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", lambda: False)()):
+            continue
+        a = e.start_ns() / 1e3 if hasattr(e, "start_ns") else e.start_us()
+        starts.append(a)
+        ends.append(a + (e.duration_ns() / 1e3 if hasattr(e, "duration_ns")
+                         else e.duration_us()))
+    return wall, union_ms(np.array(starts), np.array(ends)), len(starts)
+
+
+def union_ms(starts_us: np.ndarray, ends_us: np.ndarray) -> float:
+    """:func:`busy_ms` of device intervals given as arrays (µs): the length
+    of their union, in ms, vectorised for the 10^5-10^6 intervals of an
+    epoch."""
+    if not len(starts_us):
+        return 0.0
+    order = np.argsort(starts_us, kind="stable")
+    s, e = starts_us[order], ends_us[order]
+    before = np.concatenate([[-np.inf], np.maximum.accumulate(e)[:-1]])
+    return float(np.clip(e - np.maximum(s, before), 0.0, None).sum() / 1e3)
+
+
+class RunProbe:
+    """While active, a ``run_cv`` runs as it does, but: each fold's start
+    is timed (``loop.init_model`` is called once a fold), and the ``n``-th
+    ``loop.run_epoch`` call (the run's last epoch: folds x epochs) runs
+    under :func:`epoch_busy` on a card, or is timed alone on the CPU.
+    ``prof`` is then (wall ms, busy ms, device events) and
+    :meth:`first_fold_s` the first fold's seconds, which no profiler
+    touched. The phase measures the run's own epoch, so no extra epoch is
+    trained for the profile."""
+
+    def __init__(self, torch, n: int):
+        self.torch, self.n, self.prof, self.starts = torch, n, None, []
+
+    def first_fold_s(self) -> float:
+        return self.starts[1] - self.starts[0]
+
+    def __enter__(self):
+        from mertools_tpu_torch.train import loop
+
+        self.loop, self.orig = loop, (loop.run_epoch, loop.init_model)
+        self.calls = 0
+
+        def init_model(*args, **kw):
+            self.starts.append(time.perf_counter())
+            return self.orig[1](*args, **kw)
+
+        def run_epoch(model, *args, **kw):
+            self.calls += 1
+            if self.calls != self.n:
+                return self.orig[0](model, *args, **kw)
+            out = []
+            if next(model.parameters()).is_cuda:
+                self.prof = epoch_busy(self.torch, lambda: out.append(
+                    self.orig[0](model, *args, **kw)))
+            else:
+                t0 = time.perf_counter()
+                out.append(self.orig[0](model, *args, **kw))
+                self.prof = ((time.perf_counter() - t0) * 1e3, float("nan"), 0)
+            return out[0]
+
+        loop.run_epoch, loop.init_model = run_epoch, init_model  # run_cv calls them by name
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.run_epoch, self.loop.init_model = self.orig
+
+
+def zoo_card_vs_cpu(torch, model: str, hp: dict, sets: dict, dev: str, feat_type: str):
+    """12c's check for ``model`` at ``hp`` with every dropout off (MISA's
+    transformer layer too) and MFM's four prior samples drawn once on the
+    CPU and handed to both sides: (a step's gradients, a trained model's
+    test logits), max |card - cpu| / max |cpu|."""
+    from mertools_tpu_torch.core.config import Args
+    from mertools_tpu_torch.models.modules import Dropout
+
+    args = Args(model=model, feat_type=feat_type, output_dim1=6, output_dim2=1,
+                l2=1e-5, batch_size=32, **dict(hp, dropout=0.0))
+    prior = [torch.randn(32, hp["hidden_dim"], generator=torch.Generator().manual_seed(170 + i))
+             for i in range(4)]
+
+    def prepare(m):
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.p = 0.0
+        if hasattr(m, "prior_samples"):
+            m.prior_samples = prior
+
+    return same_weights_check(torch, args, sets, dev, np.random.default_rng(0),
+                              prepare=prepare, floor=ZOO_GRAD_FLOOR)
+
+
+def zoo_sets(rng, feat_type: str, n: dict):
+    """Seeded FeatureDatasets of ``n[split]`` clips at the published widths
+    (12c's frame spans, compressed, for the frame-level types)."""
+    from mertools_tpu_torch.data.dataset import FeatureDataset
+
+    out = {}
+    for split, k in n.items():
+        emos = rng.integers(0, 6, k)
+        if feat_type == "utt":
+            raw = [[x[None] for x in fusion_features(rng, emos, dim)]
+                   for _, dim in FUSION_FEATURES]
+        else:
+            raw = [frm_features(rng, emos, dim, lo, hi) for _, dim, lo, hi in FRM_FEATURES]
+        out[split] = FeatureDataset.from_raw(
+            [f"{split}{i}" for i in range(k)], emos, (emos - 2.5) / 2.5, *raw,
+            feat_type=feat_type, feat_scale=2 if feat_type == "frm_unalign" else 1)
+    return out
+
+
+def fold_steps(n_train: int, epochs: int, folds: int, batch: int = 32) -> int:
+    """Training steps of the first fold of a ``run_cv`` (it trains on all
+    chunks but the first, of n // folds)."""
+    return math.ceil((n_train - n_train // folds) / batch) * epochs
+
+
+def zoo_line(label: str, res, secs: float, probe, n_train: int, epochs: int, folds: int,
+             d_grad, d_eval, card: str, t_check: float) -> str:
+    """How a phase-17 run went: its cv metrics, the first fold's seconds
+    and training steps/s, the profiled last epoch and the card against the
+    CPU."""
+    from mertools_tpu_torch.ops.metrics import overall_metric
+
+    wall, busy, n_ev = probe.prof
+    fold_s = probe.first_fold_s()
+    emoval = overall_metric(res.cv["emofscore"], res.cv["valmse"])
+    return (f"[17 zoo] {label}: {epochs} epoch(s) x {folds} folds, cv WAF "
+            f"{res.cv['emofscore']:.4f}, emoval {emoval:.4f}; the first fold "
+            f"{fold_s:.3f} s, {fold_steps(n_train, epochs, folds) / fold_s:.1f} "
+            f"training steps/s (eval, tests and host metrics included); run_cv "
+            f"{res.duration:.1f} s, the CLI {secs:.1f} s ({secs - res.duration:.1f} "
+            f"outside run_cv: reading the stores, writing the results); the last "
+            f"epoch under the profiler: wall {wall:.1f} ms, device busy {busy:.1f} "
+            f"ms, idle share {1 - busy / wall:.3f} ({n_ev} device events); card vs "
+            f"CPU from the same weights: a step's gradients {d_grad:.3e} of the "
+            f"largest, test1 logits and valence after 2 epochs {d_eval:.3e} (limit "
+            f"{FUSION_TOL}; {t_check:.1f} s) [{card}]")
+
+
+def zoo_release(torch, flags: list, n_calls: int):
+    """``main_release`` quietly under a :class:`RunProbe`: (result, CLI s,
+    probe)."""
+    from mertools_tpu_torch.cli import main_release
+
+    t0 = time.perf_counter()
+    with RunProbe(torch, n_calls) as probe:
+        res, _ = quiet(main_release.main, flags)
+    return res, time.perf_counter() - t0, probe
+
+
+def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
+                     epochs=ZOO_EPOCHS, folds=ZOO_FOLDS):
+    """17: every other fusion model of the zoo through ``main_release`` at
+    MER2023's split sizes with its ``--seed=0`` hyperparameters: (a) the
+    utt models on UTT stores at 1024/1024/768, the recurrent and
+    transformer models on frm_align stores with 12c's frame spans, MulT on
+    frm_unalign too; cv WAF and emoval, s a fold, steps/s and the idle share
+    of the run's last epoch under the profiler; (b) each against the CPU
+    from the same weights (12c's check, dropout off); (c) top-N fusion
+    (``--fusion_topn=6``, AVT, ``attention_topn``) on 18 UTT stores at their
+    encoders' widths, the same numbers; (d) ``cli.sweep --n_search=3
+    --n_repeat=2`` over 12b's attention flags with the hyperparameters left
+    to the search. ``epochs`` and ``folds`` (by group) are the phase's cuts
+    of the protocol's 100 epochs and 5 folds."""
+    from mertools_tpu_torch.cli import main_release, sweep
+    from mertools_tpu_torch.core.globals_mer import feature_dir_name
+    from mertools_tpu_torch.data import labels
+    from mertools_tpu_torch.data.dataset import TopNFeatureDataset
+
+    t_phase = time.perf_counter()
+    if dev == "cuda":  # cuBLAS and cuDNN set up before any fold is timed
+        x = torch.ones(2, 4, 8, device=dev)
+        torch.nn.LSTM(8, 8).to(dev)(x)[0].sum().item()
+    rng = np.random.default_rng(17)
+    corpora, emos = fusion_labels(
+        rng, {s: [f"{s}_{i:05d}" for i in range(n)] for s, n in splits.items()})
+    names = [n for c in corpora.values() for n in c]
+    all_emos = np.concatenate(list(emos.values()))
+    n_train = splits["train"]
+    small = {"train": min(200, n_train // 2), "test1": min(40, n_train // 4)}
+    results = {}
+
+    def record(key, res, probe, group):
+        fold_s = probe.first_fold_s()
+        results[key] = dict(wall=probe.prof[0], busy=probe.prof[1], fold_s=fold_s,
+                            steps_s=fold_steps(n_train, epochs[group], folds[group]) / fold_s,
+                            waf=res.cv["emofscore"])
+
+    with tempfile.TemporaryDirectory() as d:
+        fdir = os.path.join(d, "features")
+        t0 = time.perf_counter()
+        utt = {f: fusion_features(rng, all_emos, dim) for f, dim in FUSION_FEATURES}
+        frm = {f: frm_features(rng, all_emos, dim, lo, hi) for f, dim, lo, hi in FRM_FEATURES}
+        for f, rows in list(utt.items()) + list(frm.items()):
+            write_store(os.path.join(fdir, f), names, rows)
+        labels.write_label_archive(os.path.join(d, "label.npz"), corpora)
+        frm_gb = sum(x.nbytes for rows in frm.values() for x in rows) / 1e9
+        del frm
+        print(f"[17 zoo] wrote MER2023-size stores ({len(names)} clips): UTT "
+              f"{', '.join(f'{f} ({dim})' for f, dim in FUSION_FEATURES)}; FRA "
+              f"{', '.join(f'{f} ({dim}, {lo}-{hi} frames / {FRM_SCALE})' for f, dim, lo, hi in FRM_FEATURES)}"
+              f", {frm_gb:.2f} GB; {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+        runs = [(m, "utt") for m in ZOO_UTT] + [(m, "frm_align") for m in ZOO_FRM]
+        runs.append(("mult", "frm_unalign"))
+        for model, feat_type in runs:
+            group = "utt" if feat_type == "utt" else "frm"
+            ep, nf = epochs[group], folds[group]
+            with mer2023_folds(nf):
+                res, secs, prof = zoo_release(torch, zoo_flags(d, model, feat_type, ep, dev),
+                                              ep * nf)
+            for s in ("test1", "test2", "test3"):
+                got = res.test_results[s]["emoprobs"]
+                check(got.shape == (splits[s], 6) and bool(np.isfinite(got).all()),
+                      f"17 {model} {feat_type} {s} logits {got.shape} or non-finite")
+            check(all(np.isfinite(v) for v in res.cv.values() if np.ndim(v) == 0),
+                  f"17 {model} {feat_type} cv {res.cv}")
+            hp = seed0_hp(model)
+            t0 = time.perf_counter()
+            d_grad, d_eval = zoo_card_vs_cpu(torch, model, hp, zoo_sets(
+                np.random.default_rng(18), feat_type, small), dev, feat_type)
+            print(zoo_line(f"a/b: {model} {feat_type} (hidden {hp['hidden_dim']}, "
+                           f"seed-0 draw {hp})", res, secs, prof, n_train, ep, nf,
+                           d_grad, d_eval, card, time.perf_counter() - t0), flush=True)
+            check(d_grad <= FUSION_TOL, f"17 {model} {feat_type} card vs CPU gradients {d_grad}")
+            check(d_eval <= FUSION_TOL, f"17 {model} {feat_type} card vs CPU logits {d_eval}")
+            record(f"{model} {feat_type}", res, prof, group)
+            torch.cuda.empty_cache()
+
+        # (c) top-N: 18 UTT stores named by the top 6 of each rank list
+        t0 = time.perf_counter()
+        fnames = TopNFeatureDataset.feature_names(6, "AVT")
+        topn = {f: fusion_features(rng, all_emos, TOPN_WIDTHS[f]) for f in fnames}
+        for f, x in topn.items():
+            write_store(os.path.join(fdir, feature_dir_name(f, "UTT")), names, x)
+        t_write = time.perf_counter() - t0
+        ep, nf = epochs["topn"], folds["topn"]
+        with mer2023_folds(nf):
+            res, secs, prof = zoo_release(torch, [
+                "--dataset=MER2023", "--fusion_topn=6", "--fusion_modality=AVT",
+                "--model=attention_topn", "--feat_type=utt", "--seed=0", "--batch_size=32",
+                f"--epochs={ep}", f"--features_root={fdir}",
+                f"--label_path={os.path.join(d, 'label.npz')}",
+                f"--save_root={os.path.join(d, 'saved', 'topn')}", "--device", dev], ep * nf)
+        got = res.test_results["test3"]["emoprobs"]
+        check(got.shape == (splits["test3"], 6) and bool(np.isfinite(got).all()),
+              f"17 top-N test3 logits {got.shape}")
+        hp = seed0_hp("attention_topn")
+        sl = slice(0, small["train"] + small["test1"])
+        e = all_emos[sl]
+        both = TopNFeatureDataset(names[sl], [topn[f][sl] for f in fnames], e.astype(np.int32),
+                                  ((e - 2.5) / 2.5).astype(np.float32))
+        cut = small["train"]
+        sets = {s: TopNFeatureDataset(both.names[r], [x[r] for x in both.feats],
+                                      both.emos[r], both.vals[r])
+                for s, r in (("train", slice(0, cut)), ("test1", slice(cut, None)))}
+        t0 = time.perf_counter()
+        d_grad, d_eval = zoo_card_vs_cpu(torch, "attention_topn", hp, sets, dev, "utt")
+        widths = [TOPN_WIDTHS[f] for f in fnames]
+        print(zoo_line(f"c: top-N --fusion_topn=6 AVT attention_topn (hidden "
+                       f"{hp['hidden_dim']}) on 18 UTT stores {dict(zip(fnames, widths))} "
+                       f"({sum(widths)} floats a clip; written in {t_write:.1f} s)",
+                       res, secs, prof, n_train, ep, nf, d_grad, d_eval, card,
+                       time.perf_counter() - t0), flush=True)
+        check(d_grad <= FUSION_TOL, f"17 top-N card vs CPU gradients {d_grad}")
+        check(d_eval <= FUSION_TOL, f"17 top-N card vs CPU logits {d_eval}")
+        record("topn", res, prof, "topn")
+        del topn
+
+        # (d) the sweep over 12b's attention flags, hyperparameters searched;
+        # the last epoch of the last repeat under the profiler
+        calls, run_one = [], main_release.main
+
+        def recording(argv):
+            calls.append((list(argv), run_one(argv)))
+            return calls[-1][1]
+
+        ep, nf = epochs["sweep"], folds["sweep"]
+        flags = [f for f in fusion_flags(fdir, os.path.join(d, "label.npz"),
+                                         os.path.join(d, "saved", "sweep"),
+                                         [f for f, _ in FUSION_FEATURES])
+                 if f != "--seed=0"] + ["--batch_size=32", f"--epochs={ep}", "--device", dev]
+        main_release.main = recording  # the sweep calls it by name
+        try:
+            t0 = time.perf_counter()
+            with mer2023_folds(nf), RunProbe(torch, 5 * ep * nf) as p:
+                _, out = quiet(sweep.main, ["--n_search=3", "--n_repeat=2", "--", *flags])
+            secs = time.perf_counter() - t0
+        finally:
+            main_release.main = run_one
+        line = json.loads(out.strip().splitlines()[-1])
+        scores = [float(r.cv["emofscore"]) for _, r in calls]  # the sweep's key
+        best = int(np.argmax(scores[:3]))
+        hp = calls[best][1].chosen_hp
+        carried = all(f"--{k}={v}" in argv for argv, _ in calls[3:] for k, v in hp.items())
+        check(len(calls) == 5 and carried, f"17 sweep calls {[a for a, _ in calls]}")
+        check(line["n_search"] == 3 and line["n_repeat"] == 2
+              and abs(line["best_search"] - scores[best]) < 1e-12,
+              f"17 sweep line {line}")
+        durations = [r.duration for _, r in calls]
+        wall, busy, _ = p.prof
+        fold_s = float(np.mean(np.diff(p.starts)[::nf]))  # each run's first fold
+        print(f"[17 zoo] d: cli.sweep --n_search=3 --n_repeat=2 over 12b's attention "
+              f"flags ({ep} epoch(s) x {nf} folds a run, hyperparameters searched): "
+              f"search cv WAF {[round(x, 4) for x in scores[:3]]}, winner run {best} "
+              f"{hp} carried into both repeats; the JSON line {line}; "
+              f"first folds {fold_s:.3f} s, "
+              f"{fold_steps(n_train, ep, nf) / fold_s:.1f} training steps/s; run_cv "
+              f"{np.mean(durations):.1f} s a run; "
+              f"{secs:.1f} s for the 5 runs; the last repeat's last epoch under the "
+              f"profiler: wall {wall:.1f} ms, busy {busy:.1f} ms, idle share "
+              f"{1 - busy / wall:.3f} [{card}]", flush=True)
+        results["sweep"] = dict(wall=wall, busy=busy, fold_s=fold_s,
+                                steps_s=fold_steps(n_train, ep, nf) / fold_s,
+                                waf=line["repeat_mean"])
+    print(f"[17 zoo] phase 17 took {time.perf_counter() - t_phase:.1f} s; idle "
+          f"shares { {k: round(1 - r['busy'] / r['wall'], 3) for k, r in results.items()} } "
+          f"[{card}]", flush=True)
+    return results
+
+
+def zoo_phase(torch, wrappers, card) -> None:
+    """Phase 17 with the kernels' counts set to 0 before it and read after
+    it: no zoo model launches B1, B2 or B3."""
+    for w in wrappers:
+        w.launches = 0
+    phase_fusion_zoo(torch, card)
+    zoo_launches = {w.__name__: w.launches for w in wrappers}
+    print(f"[17 zoo] kernel launches in phase 17: {zoo_launches} [{card}]", flush=True)
+    check(not any(zoo_launches.values()), f"phase 17 launched {zoo_launches}")
+
+
 def b3_times_of(torch, root: str) -> int:
     """Phase 9's bf16 timing lines (S 512 and S 1024), phase 2's bf16 B1
     line (kernel, SDPA with the key mask, bound) and phase 5's B2 line
@@ -2779,7 +3271,8 @@ def main(argv: list[str]) -> int:
         return 1
     if argv[:1] == ["--b3-times"] and len(argv) == 2:
         return b3_times_of(torch, argv[1])
-    if argv:
+    zoo_only = argv == ["--fusion-zoo"]
+    if argv and not zoo_only:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(HERE, "mertools_tpu_torch")):
@@ -2806,6 +3299,12 @@ def main(argv: list[str]) -> int:
     card = card_line()
     print(f"[1 device] {kind}; nvidia-smi: {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    wrappers = [fa.flash_attention, mf.mel_power] + [getattr(fc, n) for n in B3_WRAPPERS]
+    if zoo_only:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        zoo_phase(torch, wrappers, card)
+        return 0
     path, secs, log = _kernels.build()
     usage = check_no_spills(log)
     print(f"[1 device] kernels {os.path.relpath(path, HERE)}: built in "
@@ -2836,7 +3335,6 @@ def main(argv: list[str]) -> int:
 
     # the fusion trainer's path: counts start at 0 here and are read right
     # after it; it runs cuBLAS/cuDNN and none of the port's kernels
-    wrappers = [fa.flash_attention, mf.mel_power] + [getattr(fc, n) for n in B3_WRAPPERS]
     for w in wrappers:
         w.launches = 0
     phase_fusion_hubert(torch, card)
@@ -2869,6 +3367,9 @@ def main(argv: list[str]) -> int:
           f"by bucket {text_ms}; CLIP 64 x 257 {b1_vis['ms']:.4f} / "
           f"{b1_vis['plain_ms']:.4f} / {b1_vis['library_ms']:.4f} / "
           f"{b1_vis['bound_ms']:.4f} [{card}]", flush=True)
+
+    torch.cuda.empty_cache()
+    zoo_phase(torch, wrappers, card)
 
     b, m = kres["bf16"], mres
     kernels = [{

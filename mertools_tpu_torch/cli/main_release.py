@@ -15,8 +15,11 @@ published ``run.sh`` recipes translate 1:1:
   * 5-fold CV + random hyperparameter search + npz artifacts follow
     MERBench/main-release.py:130-272, incl. feat_scale 1/6/12 and the
     cv_/testN_ result filename conventions.
-  * Ported: the attention fusion model. Any other ``--model`` (the rest of
-    the zoo, e2e, videomae) and ``--fusion_topn`` exit naming ROADMAP A7,
+  * Every feature-level fusion model of the zoo runs (``--model=attention``,
+    ``tfn``, ``lmf``, ``misa``, ``mmim``, ``mfn``, ``graph_mfn``, ``mfm``,
+    ``mctn``, ``mult``, ``ef_lstm``, ``lf_dnn``), and top-N fusion with
+    ``--fusion_topn=N --model=attention_topn``. The raw-input models
+    (``e2e_model``, ``videomae_pretrain``) exit naming ROADMAP A7,
     ``--savemodel`` naming A7 and A17.
 """
 
@@ -32,6 +35,7 @@ import numpy as np
 from ..core.config import Args, configure_from_env, load_yaml, random_select
 from ..core.device import resolve_device
 from ..core.profiling import trace
+from ..core.registry import registry
 from ..data.loaders import get_loader
 from ..ops import metrics
 from ..train.loop import run_cv
@@ -119,6 +123,9 @@ def resolve_paths(args: Args) -> None:
         raise SystemExit("need --label_path or a registry entry")
     for mod, feat in (("audio", args.audio_feature), ("text", args.text_feature),
                       ("video", args.video_feature)):
+        if args.fusion_topn:  # top-N picks its stores from the rank lists
+            args[f"{mod}_root"] = None
+            continue
         if not feat:
             raise SystemExit(f"--{mod}_feature is required")
         args[f"{mod}_root"] = os.path.join(args.features_root, feat)
@@ -130,16 +137,21 @@ def modality_tag(features: list[str]) -> str:
 
 
 def check_ported(args: Args) -> None:
-    """Exit naming the ROADMAP item of what this package does not run yet."""
-    if args.fusion_topn is not None:
-        raise SystemExit("--fusion_topn: top-N fusion is not ported to "
-                         "mertools_tpu_torch yet (ROADMAP A7)")
-    if args.model != "attention":
-        what = ("e2e fine-tuning" if args.model in ("e2e_model", "videomae_pretrain")
-                else "this fusion model")
-        raise SystemExit(f"--model={args.model}: {what} is not ported to "
-                         f"mertools_tpu_torch yet (ROADMAP A7); it runs "
-                         f"--model=attention")
+    """Exit naming the ROADMAP item of what this package does not run yet,
+    or what a flag needs beside it."""
+    if args.model in ("e2e_model", "videomae_pretrain"):
+        raise SystemExit(f"--model={args.model}: e2e fine-tuning is not ported "
+                         f"to mertools_tpu_torch yet (ROADMAP A7)")
+    if args.fusion_topn and args.model != "attention_topn":
+        # the JAX package reads the tune space of --model before it
+        # defaults the model, so a missing --model raises KeyError: None
+        raise SystemExit(f"--fusion_topn trains --model=attention_topn, got "
+                         f"--model={args.model}")
+    if args.model == "attention_topn" and not args.fusion_topn:
+        raise SystemExit("--model=attention_topn needs --fusion_topn=N")
+    if args.model not in registry.names("model"):
+        raise SystemExit(f"--model={args.model}: not a fusion model; it runs "
+                         f"{', '.join(registry.names('model'))}")
     if args.savemodel:
         raise SystemExit("--savemodel saves an e2e backbone, which is not "
                          "ported to mertools_tpu_torch yet (ROADMAP A7, A17)")
@@ -169,7 +181,7 @@ def main(argv=None):
         args.feat_scale = 1
     elif args.feat_scale is None:
         args.feat_scale = 6 if args.feat_type == "frm_align" else 12
-    if args.feat_type in ("frm_align", "frm_unalign"):
+    if args.feat_type in ("frm_align", "frm_unalign") and not args.fusion_topn:
         for f in (args.audio_feature, args.text_feature, args.video_feature):
             if not (f or "").endswith("FRA"):
                 raise SystemExit(f"{args.feat_type} needs -FRA features, got {f}")

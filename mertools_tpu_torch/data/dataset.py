@@ -18,17 +18,21 @@ plus the loader plumbing of ``toolkit/dataloader/*``:
 
 Batching is an index plan (:func:`epoch_plan`): shuffled indices padded to a
 multiple of the batch size by wrapping, with a validity mask. The trainer
-keeps the dataset on the device and gathers each batch there. Top-N fusion's
-dataset waits for ROADMAP A7.
+keeps the dataset on the device and gathers each batch there.
+
+:class:`TopNFeatureDataset` is top-N fusion's (``dataset.py:144-201``): the
+best N UTT stores of each modality slot, as ``feat0..feat{K-1}``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
 
+from ..core import globals_mer as G
 from ..ops import align
 from . import feature_store
 
@@ -138,6 +142,68 @@ def epoch_plan(indices: np.ndarray, batch_size: int,
     mask[:n] = 1.0
     padded = np.tile(indices, math.ceil(total / n))[:total]
     return padded.reshape(nb, batch_size), mask.reshape(nb, batch_size)
+
+
+@dataclass
+class TopNFeatureDataset:
+    """Top-N fusion dataset: N feature sets per modality slot, all UTT
+    (reference ``MER2024/toolkit/data/feat_data_topn.py:9-60``).
+
+    ``arrays()`` exposes ``feat0..feat{K-1}`` for ``attention_topn``.
+    """
+    names: list[str]
+    feats: list[np.ndarray]      # K x (N, D_k)
+    emos: np.ndarray
+    vals: np.ndarray
+    feat_type: str = "utt"
+
+    def __len__(self):
+        return len(self.names)
+
+    @property
+    def feat_dims(self) -> list[int]:
+        return [f.shape[-1] for f in self.feats]
+
+    # the FeatureDataset protocol main_release reads
+    adim = property(lambda self: self.feats[0].shape[-1])
+    tdim = property(lambda self: self.feats[0].shape[-1])
+    vdim = property(lambda self: self.feats[0].shape[-1])
+
+    def arrays(self) -> dict[str, np.ndarray]:
+        out = {f"feat{i}": f for i, f in enumerate(self.feats)}
+        out["emos"] = self.emos
+        out["vals"] = self.vals
+        return out
+
+    @staticmethod
+    def feature_names(topn: int, modality: str = "AVT") -> list[str]:
+        """The best ``topn`` encoders of each of the modality's three rank
+        slots. ``AT`` and ``VT`` take the text ranking twice and ``AV`` the
+        image ranking twice, as the JAX package does
+        (``dataset.py:181-188``)."""
+        ranks = {"AVT": [G.AUDIO_RANK_LOW2HIGH, G.TEXT_RANK_LOW2HIGH,
+                         G.IMAGE_RANK_LOW2HIGH],
+                 "AT": [G.AUDIO_RANK_LOW2HIGH, G.TEXT_RANK_LOW2HIGH,
+                        G.TEXT_RANK_LOW2HIGH],
+                 "AV": [G.AUDIO_RANK_LOW2HIGH, G.IMAGE_RANK_LOW2HIGH,
+                        G.IMAGE_RANK_LOW2HIGH],
+                 "VT": [G.TEXT_RANK_LOW2HIGH, G.TEXT_RANK_LOW2HIGH,
+                        G.IMAGE_RANK_LOW2HIGH]}[modality]
+        return [name for rank in ranks for name in rank[-topn:]]
+
+    @classmethod
+    def build(cls, names, emos, vals, features_root, topn: int,
+              modality: str = "AVT", snr: str | None = None,
+              max_workers=8) -> "TopNFeatureDataset":
+        feats = []
+        for fname in cls.feature_names(topn, modality):
+            root = os.path.join(features_root,
+                                snr_variant(G.feature_dir_name(fname, "UTT"), snr))
+            raw, _ = feature_store.read_features(root, names, max_workers)
+            feats.append(align.align_to_utt_np(raw).astype(np.float32))
+        return cls(names=list(names), feats=feats,
+                   emos=np.asarray(emos, np.int32),
+                   vals=np.asarray(vals, np.float32))
 
 
 def snr_variant(feature_dir: str, snr: str | None) -> str:

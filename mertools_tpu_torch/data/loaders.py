@@ -15,7 +15,8 @@ scheme — and builds :class:`FeatureDataset` objects from the feature store:
 
 "emo(±)" = accuracy/WAF of the valence *sign* over non-zero labels
 (cmudata.py:74-77 / sims.py:69-77). The metrics are the port's numpy ones.
-The e2e, videomae and top-N branches of the JAX loaders wait for ROADMAP A7.
+Under ``--fusion_topn`` a loader builds :class:`TopNFeatureDataset`s; the
+e2e and videomae branches of the JAX loaders wait for ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..core.registry import registry
 from ..ops import metrics
 from . import cv as cv_mod
 from . import labels as labels_mod
-from .dataset import FeatureDataset, snr_variant
+from .dataset import FeatureDataset, TopNFeatureDataset, snr_variant
 
 
 def calc_results_emoval(emo_probs=None, emo_labels=None, val_preds=None, val_labels=None):
@@ -75,11 +76,15 @@ class BaseLoader:
 
     def _build(self, names, emos, vals, snr: str | None = None):
         a = self.args
-        if a.model in ("videomae_pretrain", "e2e_model") or a.fusion_topn:
-            raise SystemExit(
-                f"{'--fusion_topn' if a.fusion_topn else '--model=' + a.model}: "
-                f"raw-input and top-N datasets are not ported to "
-                f"mertools_tpu_torch yet (ROADMAP A7)")
+        if a.model in ("videomae_pretrain", "e2e_model"):
+            raise SystemExit(f"--model={a.model}: raw-input datasets are not "
+                             f"ported to mertools_tpu_torch yet (ROADMAP A7)")
+        if a.fusion_topn:  # top-N fusion (MER2024 feat_data_topn.py)
+            ds = TopNFeatureDataset.build(
+                names, emos, vals, a.features_root, int(a.fusion_topn),
+                a.fusion_modality or "AVT", snr=snr)
+            a.feat_dims = ds.feat_dims
+            return ds
 
         def root(r):  # noise sweep: snr-tagged feature dirs
             if not snr or r is None:

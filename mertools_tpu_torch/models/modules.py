@@ -5,6 +5,11 @@ Reference counterparts in ``MERBench/toolkit/models/modules/encoder.py:9-72``:
   * :class:`LSTMEncoder` — single-layer LSTM; the *final hidden state* is the
     encoding (so inputs must be **front**-padded), then dropout + Linear.
 
+:func:`lstm_step` is one step of a Flax ``OptimizedLSTMCell`` on an
+``nn.LSTMCell`` (carry ``(c, h)`` as Flax orders it), for the recurrences
+whose steps interleave with other layers (MFN, Graph-MFN, MFM's and MCTN's
+decoders).
+
 Dropout draws its mask from the ``torch.Generator`` the caller passes, so a
 run is reproducible from its seed; ``F.dropout`` takes no generator.
 """
@@ -13,6 +18,12 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from .base import freeze_input_biases
+
+
+# Flax's nn.LayerNorm eps, which the JAX package's zoo uses (torch's is 1e-5)
+FLAX_LN_EPS = 1e-6
 
 
 class Dropout(nn.Module):
@@ -24,14 +35,18 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = float(p)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                shape: tuple[int, ...] | None = None) -> torch.Tensor:
+        """``shape``: draw one mask of that shape and broadcast it over
+        ``x`` (Flax's ``broadcast_dropout`` of attention weights)."""
         if not self.training or self.p == 0.0:
             return x
         if self.p >= 1.0:
             return torch.zeros_like(x)
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+        # one Bernoulli draw scaled in place, then one product: three
+        # kernels a call, which the zoo's per-step loops make by the thousand
+        keep = x.new_empty(shape or x.shape).bernoulli_(1.0 - self.p, generator=generator)
+        return x * keep.mul_(1.0 / (1.0 - self.p))
 
 
 class MLPEncoder(nn.Module):
@@ -53,10 +68,7 @@ class MLPEncoder(nn.Module):
 class LSTMEncoder(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
-        self.lstm = nn.LSTM(in_dim, hidden_dim, batch_first=True)
-        # Flax's cell has one bias a gate (on the recurrent side): the
-        # input-side bias stays 0, or the gate bias would learn twice as fast
-        self.lstm.bias_ih_l0.requires_grad_(False)
+        self.lstm = freeze_input_biases(nn.LSTM(in_dim, hidden_dim, batch_first=True))
         self.dropout = Dropout(dropout)
         self.fc = nn.Linear(hidden_dim, hidden_dim)
 
@@ -65,6 +77,14 @@ class LSTMEncoder(nn.Module):
         """x: (B, T, D) front-padded -> (B, hidden_dim) from the final step."""
         _, (h_n, _) = self.lstm(x)
         return self.fc(self.dropout(h_n[-1], generator))
+
+
+def lstm_step(cell: nn.LSTMCell, carry: tuple[torch.Tensor, torch.Tensor] | None,
+              x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step of ``cell`` from ``carry`` = (c, h) (None: zeros) on ``x``
+    (B, in) -> the new (c, h)."""
+    h, c = cell(x, None if carry is None else (carry[1], carry[0]))
+    return c, h
 
 
 class SimpleClassifierHeads(nn.Module):

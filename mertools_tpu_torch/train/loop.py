@@ -69,10 +69,13 @@ class ClippedAdam:
 def init_model(args: Args, sample_batch: dict, generator: torch.Generator
                ) -> torch.nn.Module:
     """A fold's fresh model on the CPU: ``args.model`` at the widths of
-    ``sample_batch`` (host arrays), drawn by :func:`init_flax_style` from
+    ``sample_batch`` (host arrays: audio, text and video, or a top-N
+    dataset's ``feat0..feat{K-1}``), drawn by :func:`init_flax_style` from
     ``generator``. :func:`run_cv` builds every fold through this name, so a
     test can give the folds other starting weights."""
-    dims = tuple(sample_batch[k].shape[-1] for k in ("audios", "texts", "videos"))
+    keys = ([f"feat{i}" for i in range(sum(k.startswith("feat") for k in sample_batch))]
+            or ["audios", "texts", "videos"])
+    dims = tuple(sample_batch[k].shape[-1] for k in keys)
     return init_flax_style(get_model(args, dims), generator)
 
 

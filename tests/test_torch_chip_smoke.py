@@ -366,3 +366,140 @@ def test_phase16_npz_tree_reads_back_through_from_flax():
     back = fd.from_flax(chip_smoke.to_flax_tree(sd))
     assert sorted(back) == sorted(sd)
     assert all(torch.equal(back[k], sd[k]) for k in sd)
+
+
+def test_phase17_topn_widths_name_the_top6_of_every_ranking():
+    from mertools_tpu_torch.data.dataset import TopNFeatureDataset
+
+    names = TopNFeatureDataset.feature_names(6, "AVT")
+    assert len(names) == 18 == len(set(names))
+    assert sorted(chip_smoke.TOPN_WIDTHS) == sorted(names)
+    assert chip_smoke.TOPN_WIDTHS["chinese-hubert-large"] == 1024
+    assert chip_smoke.TOPN_WIDTHS["baichuan2-7b-base"] == 4096
+
+
+@pytest.mark.parametrize("n_train,folds", [(3373, 5), (3373, 2), (83, 3)])
+def test_phase17_fold_steps_count_the_first_folds_training_batches(n_train, folds):
+    import math
+
+    import numpy as np
+
+    from mertools_tpu_torch.data import cv
+
+    train_idx, _ = cv.kfold_indices(n_train, folds, np.random.default_rng(0))[0]
+    assert chip_smoke.fold_steps(n_train, 3, folds) == 3 * math.ceil(len(train_idx) / 32)
+
+
+def test_phase17_frame_stores_hold_12c_spans_compressed():
+    import numpy as np
+
+    emos = np.arange(600) % 6
+    for _, dim, lo, hi in chip_smoke.FRM_FEATURES:
+        rows = chip_smoke.frm_features(np.random.default_rng(0), emos, dim, lo, hi)
+        lens = np.array([len(r) for r in rows])
+        assert lens.min() >= -(-lo // 6) and lens.max() <= -(-hi // 6)
+        assert lens.max() - lens.min() >= (hi - lo) // 6 - 2  # ragged over the span
+        assert all(r.shape[1] == dim and r.dtype == np.float32 for r in rows)
+        means = np.stack([np.concatenate([r for r, e in zip(rows, emos) if e == c]).mean(0)
+                          for c in range(6)])
+        assert np.abs(means[0] - means[1]).mean() > 0.1  # class-separable
+
+
+@pytest.mark.parametrize("feat_type,scale", [("utt", None), ("frm_align", "1"),
+                                             ("frm_unalign", "2")])
+def test_phase17_flags_parse_in_main_release(feat_type, scale):
+    from mertools_tpu_torch.cli import main_release
+
+    flags = chip_smoke.zoo_flags("/d", "mfn", feat_type, 1, "cuda")
+    ns, unknown = main_release.build_parser().parse_known_args(flags)
+    assert unknown == [] and ns.model == "mfn" and ns.feat_type == feat_type
+    assert ns.device == "cuda" and ns.seed == 0 and ns.epochs == 1
+    assert ns.feat_scale == (None if scale is None else int(scale))
+    suffix = "UTT" if feat_type == "utt" else "FRA"
+    assert all(f.endswith(suffix) for f in (ns.audio_feature, ns.text_feature, ns.video_feature))
+
+
+@pytest.mark.parametrize("model", ["tfn", "mfm", "mult", "attention_topn"])
+def test_phase17_seed0_hyperparameters_are_the_jax_clis_draw(model):
+    import numpy as np
+
+    from mertools_tpu.cli import main_release as j_main_release
+    from mertools_tpu.core.config import load_yaml, random_select
+
+    space = load_yaml(os.path.normpath(j_main_release._TUNE_YAML))[model]
+    assert chip_smoke.seed0_hp(model) == random_select(space, np.random.default_rng(0))
+
+
+def test_phase17_card_vs_cpu_turns_dropout_off_and_fixes_the_prior():
+    """On the CPU both legs are the same model: every distance is 0 only
+    if the check turns off each dropout (MISA's transformer too) and hands
+    MFM one prior for both; a fresh prior a call would move the logits."""
+    import numpy as np
+
+    hp = {"hidden_dim": 16, "mem_dim": 8, "dropout": 0.5, "lr": 1e-3,
+          "lda_xl": 0.1, "lda_xa": 0.1, "lda_xv": 0.1, "lda_mmd": 10.0}
+    sets = chip_smoke.zoo_sets(np.random.default_rng(0), "frm_align",
+                               {"train": 40, "test1": 8})
+    assert chip_smoke.zoo_card_vs_cpu(__import__("torch"), "mfm", hp, sets, "cpu",
+                                      "frm_align") == (0.0, 0.0)
+    hp = {"hidden_dim": 16, "dropout": 0.5, "lr": 1e-3}
+    sets = chip_smoke.zoo_sets(np.random.default_rng(0), "utt", {"train": 40, "test1": 8})
+    assert chip_smoke.zoo_card_vs_cpu(__import__("torch"), "misa", hp, sets, "cpu",
+                                      "utt") == (0.0, 0.0)
+
+
+def test_phase17_runs_end_to_end_on_the_cpu_at_a_small_size(monkeypatch, capsys):
+    """The phase's orchestration on the CPU (no profile there) with two
+    models, narrow stores and tiny splits: every check it makes passes and
+    it prints a line for each run, top-N and the sweep."""
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "ZOO_UTT", ("lmf",))
+    monkeypatch.setattr(chip_smoke, "ZOO_FRM", ("mfn",))
+    monkeypatch.setattr(chip_smoke, "FUSION_FEATURES",
+                        tuple((f, 8 + i) for i, (f, _) in enumerate(chip_smoke.FUSION_FEATURES)))
+    monkeypatch.setattr(chip_smoke, "FRM_FEATURES",
+                        tuple((f, 6 + i, lo, hi) for i, (f, _, lo, hi)
+                              in enumerate(chip_smoke.FRM_FEATURES)))
+    monkeypatch.setattr(chip_smoke, "TOPN_WIDTHS", {k: 4 for k in chip_smoke.TOPN_WIDTHS})
+    res = chip_smoke.phase_fusion_zoo(
+        torch, "cpu", dev="cpu", splits={"train": 40, "test1": 8, "test2": 8, "test3": 10},
+        epochs={"utt": 1, "frm": 1, "topn": 1, "sweep": 1})
+    out = capsys.readouterr().out
+    assert sorted(res) == ["lmf utt", "mfn frm_align", "mult frm_unalign", "sweep", "topn"]
+    assert out.count("[17 zoo] a/b:") == 3 and "[17 zoo] c: top-N" in out
+    assert "carried into both repeats" in out
+    assert all(r["wall"] > 0 for r in res.values())  # each run's last epoch, timed
+
+
+def test_phase17_times_the_runs_last_epoch_only(monkeypatch):
+    """``RunProbe`` lets every epoch of a run through, times (on a card:
+    profiles) only the n-th, the run's last, and each fold's start."""
+    import torch
+
+    from mertools_tpu_torch.train import loop
+
+    seen = []
+    monkeypatch.setattr(loop, "run_epoch", lambda model, *a: seen.append(a) or len(seen))
+    model = torch.nn.Linear(2, 2)
+    monkeypatch.setattr(loop, "init_model", lambda *a: model)
+    with chip_smoke.RunProbe(torch, 3) as p:
+        for i in range(4):
+            if i % 2 == 0:
+                assert loop.init_model() is model
+            assert loop.run_epoch(model, i) == i + 1
+        assert p.prof[0] >= 0 and p.prof[2] == 0
+        assert p.first_fold_s() > 0 and len(p.starts) == 2
+    assert loop.run_epoch(model, 9) == 5  # restored
+
+
+def test_phase17_union_is_the_busy_sum():
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0, 1000, 500)
+    b = a + rng.exponential(5, 500)
+    evs = [(x, y, "k", "device") for x, y in zip(a, b)]
+    assert chip_smoke.union_ms(a, b) == pytest.approx(chip_smoke.busy_ms(evs), rel=1e-12)
+    assert chip_smoke.union_ms(np.array([0.0, 5.0]), np.array([10.0, 7.0])) == 0.01
+    assert chip_smoke.union_ms(np.array([]), np.array([])) == 0.0

@@ -115,16 +115,25 @@ def test_main_release_with_random_hyperparameters(synth_store, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model=tfn"], "ROADMAP A7"),
+    (["--model=tfn"], None),  # ported: trains
     (["--model=e2e_model"], "e2e fine-tuning .*ROADMAP A7"),
     (["--model=videomae_pretrain"], "ROADMAP A7"),
-    (["--fusion_topn=2"], "top-N fusion .*ROADMAP A7"),
+    (["--fusion_topn=2"], "--fusion_topn trains --model=attention_topn"),
     (["--savemodel"], "ROADMAP A7, A17"),
 ])
-def test_what_is_not_ported_exits_naming_its_roadmap_item(tmp_path, extra, match):
-    flags = [f for f in _flags(tmp_path, tmp_path / "x") if f != "--model=attention"]
+def test_what_is_not_ported_exits_naming_its_roadmap_item(tmp_path, request, extra, match):
+    """The raw-input models and --savemodel still exit naming their ROADMAP
+    item; --fusion_topn with another model exits naming the model it
+    trains; the rest of the zoo (here TFN) runs."""
+    root = request.getfixturevalue("synth_store") if match is None else tmp_path
+    flags = [f for f in _flags(root, tmp_path / "x") if f != "--model=attention"]
     if not any(e.startswith("--model") for e in extra):
         flags.append("--model=attention")
+    if match is None:
+        result = main_release.main(flags + extra + ["--hidden_dim=8", "--epochs=1",
+                                                    "--device", "cpu"])
+        assert result.test_results["test1"]["emoprobs"].shape == (12, 6)
+        return
     with pytest.raises(SystemExit, match=match):
         main_release.main(flags + extra + ["--device", "cpu"])
 

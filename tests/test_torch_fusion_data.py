@@ -270,8 +270,22 @@ def test_random_select_draws_as_the_jax_package():
                 == j_random_select(space, np.random.default_rng(seed)))
 
 
-def test_loader_names_a7_for_top_n_and_raw_inputs():
-    for kw in ({"fusion_topn": 2}, {"model": "e2e_model"}, {"model": "videomae_pretrain"}):
+def test_loader_names_a7_for_top_n_and_raw_inputs(tmp_path):
+    """The raw-input models still exit naming ROADMAP A7; under
+    --fusion_topn the loader builds the top-N dataset and records its
+    widths in ``feat_dims``."""
+    for kw in ({"model": "e2e_model"}, {"model": "videomae_pretrain"}):
         loader = t_loaders.MER2023Loader(Args(kw))
         with pytest.raises(SystemExit, match="ROADMAP A7"):
             loader._build(["a"], np.zeros(1), np.zeros(1))
+    from mertools_tpu_torch.core.globals_mer import feature_dir_name
+    from mertools_tpu_torch.data.dataset import TopNFeatureDataset
+
+    names = TopNFeatureDataset.feature_names(2, "AVT")
+    for i, n in enumerate(names):
+        t_store.write_feature(str(tmp_path / feature_dir_name(n, "UTT")), "a",
+                              np.full(3 + i, i, np.float32))
+    args = Args(fusion_topn=2, features_root=str(tmp_path))
+    ds = t_loaders.MER2023Loader(args)._build(["a"], np.zeros(1), np.zeros(1))
+    assert isinstance(ds, TopNFeatureDataset)
+    assert args.feat_dims == ds.feat_dims == [3 + i for i in range(6)]

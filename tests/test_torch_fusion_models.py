@@ -152,10 +152,14 @@ def test_dropout_draws_from_its_generator():
 
 
 def test_get_model_builds_attention_and_names_a7_for_the_rest():
+    """Every registered zoo model builds; a raw-input model exits naming
+    ROADMAP A7."""
     args = Args(model="attention", hidden_dim=8, dropout=0.0, feat_type="frm_align",
                 output_dim1=4, output_dim2=0, lr=1e-3)
     m = get_model(args, (5, 6, 7))
     assert isinstance(m.audio_encoder, t_modules.LSTMEncoder)
     assert m.heads.fc_out_2 is None and m.heads.fc_out_1.out_features == 4
+    tfn = get_model(Args(model="tfn", hidden_dim=4), (5, 6, 7))
+    assert tfn.post_fusion_layer_1.in_features == 5 ** 3
     with pytest.raises(SystemExit, match="A7"):
-        get_model(Args(model="tfn"), (5, 6, 7))
+        get_model(Args(model="e2e_model"), (5, 6, 7))
