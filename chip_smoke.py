@@ -12,8 +12,9 @@ heads, vocab 32000), the MERBench fusion trainer (attention fusion, hidden
 256, 5-fold CV) at MER2023's split sizes, MacBERT-large text features
 (vocab 21128, hidden 1024, 24 layers, 16 heads, 512 positions) and
 CLIP-ViT-L/14 vision features (224 px, patch 14, 257 tokens, hidden 1024,
-24 layers, projection 768), MER2023's trimodal pipeline, and the face
-frontend that makes its face stores from frames — and checks them:
+24 layers, projection 768), MER2023's trimodal pipeline, the face
+frontend that makes its face stores from frames, and AffectGPT generation
+and serving at TinyLlama-1.1B width — and checks them:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
@@ -101,21 +102,46 @@ frontend that makes its face stores from frames — and checks them:
    hyperparameters ``--seed=0`` draws from ``train/model_tune.yaml``, every
    run cut to 1 epoch and 2 folds (``ZOO_EPOCHS``, ``ZOO_FOLDS``): (a)
    ``main_release`` for lf_dnn, tfn, lmf, misa and mmim on UTT stores
-   (1024/1024/768), for ef_lstm, mfn, graph_mfn, mfm, mctn and mult on
+   (1024/1024/768), for ef_lstm, mfn, graph_mfn, mfm and mctn on
    frm_align stores with 12c's frame spans, and mult on frm_unalign: cv
    WAF and emoval, the first fold's seconds and training steps/s, and the
    device idle share of the run's last epoch under the profiler; (b) each
    model against the CPU from the same weights as 12c (dropout off, MFM's
-   prior drawn once for both);
+   prior drawn once for both; each gradient tensor against its own max, at
+   least 1e-3 of the model's largest, MulT on frm_unalign against the
+   largest itself);
    (c) top-N fusion (``--fusion_topn=6``, AVT, ``attention_topn``) on 18
    UTT stores at their encoders' widths, the same numbers; (d)
-   ``cli.sweep --n_search=3 --n_repeat=2`` over 12b's attention flags,
+   ``cli.sweep --n_search=2 --n_repeat=2`` over 12b's attention flags,
    checked to carry the winner's hyperparameters into the repeats and to
-   print a JSON line. It launches none of the port's kernels.
+   print a JSON line. It launches none of the port's kernels;
+18. serving at TinyLlama-1.1B width with AffectGPT's LoRA r 16: (a)
+   ``generate`` (KV cache, greedy) on 8 ragged prompts of 64-448 tokens,
+   bf16: prefill ms, a decode step's ms and tokens/s from the marginal
+   rate of 64 and 128 new tokens (guarded: the longer call must take
+   longer), peak memory, one profiled decode step's idle share beside its
+   bytes bound, then w8 weights, int8 KV and both; at full width and 2
+   layers in fp32, the cached decode against ``LLM.forward``, w8 against
+   its dequantized weights, int8 KV against full precision and the card
+   against the CPU; (b) ``ContinuousBatcher`` on 64 token-id requests of
+   16-448 tokens with budgets of 16-128, 16 slots, chunks of 32, bf16:
+   requests/s, tokens/s, a profiled chunk's idle share, and at 2 layers in
+   fp32 each request against ``generate`` on its prompt alone, without and
+   with a 32-token shared prefix; (c) ``beam_generate`` (4 beams, B 2, 32
+   tokens) on the card against the CPU; (d) ``inference_mllm`` on 16 clips
+   of CLIP-L and HuBERT FRA stores from a ``save_model`` AffectGPT, card
+   against CPU, and ``ovlabel_extraction --engine=continuous --w8 --bf16``
+   and ``translate`` on a written HF-layout directory, through a
+   character-level stand-in tokenizer. It launches none of the port's
+   kernels (counted): the JAX serving path reaches no Pallas kernel.
 
     python3 chip_smoke.py --fusion-zoo
 
-runs phase 17 alone (its kernel counts included), and
+runs phase 17 alone (its kernel counts included),
+
+    python3 chip_smoke.py --serving
+
+runs phase 18 alone (its kernel counts included), and
 
     python3 chip_smoke.py --b3-times DIR
 
@@ -136,6 +162,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import csv
 import dataclasses
 import json
 import math
@@ -1615,7 +1642,7 @@ def phase_fusion_mer2023(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
 
 
 def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2,
-                       prepare=None, floor: float = 0.0):
+                       prepare=None, floor: float = 0.0, worst: dict | None = None):
     """The card against the CPU where both start from the same weights (a
     fresh fold model, seed 0): every gradient of one training step on the
     first batch of ``sets["train"]``, then the test1 logits and valence of
@@ -1623,8 +1650,9 @@ def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2,
     ``rng``), evaluated on both. ``prepare(model)`` runs on both copies
     first (phase 17: dropout off, MFM's prior fixed). Returns the two
     max |card - cpu| / max |cpu|; a gradient's max |cpu| counts as at least
-    ``floor`` of the largest over the model (phase 17: 1, the largest
-    itself; see ``ZOO_GRAD_FLOOR``)."""
+    ``floor`` of the largest over the model (phase 17: ``ZOO_GRAD_FLOOR``).
+    ``worst`` (a dict) gets the gradient with the largest ratio: its name,
+    the ratio and its own max |cpu| over the largest."""
     from mertools_tpu_torch.core.device import resolve_device
     from mertools_tpu_torch.data.dataset import epoch_plan
     from mertools_tpu_torch.train import loop
@@ -1649,9 +1677,15 @@ def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2,
         loss.backward()
         grads[leg] = {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
         m.zero_grad(set_to_none=True)
-    top = floor * max(float(g.abs().max()) for g in grads["cpu"].values())
-    d_grad = max(float((grads["card"][n] - g).abs().max() / max(float(g.abs().max()), top))
-                 for n, g in grads["cpu"].items())
+    largest = max(float(g.abs().max()) for g in grads["cpu"].values())
+    ratios = {n: float((grads["card"][n] - g).abs().max() / max(float(g.abs().max()),
+                                                               floor * largest))
+              for n, g in grads["cpu"].items()}
+    name = max(ratios, key=ratios.get)
+    d_grad = ratios[name]
+    if worst is not None:
+        worst.update(tensor=name, ratio=d_grad, share=float(grads["cpu"][name].abs().max())
+                     / largest, floor=floor)
     opt = loop.ClippedAdam(models["card"].parameters(), lr=1e-3)
     for _ in range(epochs):
         plan = epoch_plan(np.arange(n_train), 32, rng)
@@ -2767,17 +2801,28 @@ def phase_faces(torch, fa, ex_vis, handoff: dict, card, dev: str = "cuda",
 
 # ------------------------------------------------------ fusion zoo (17)
 ZOO_UTT = ("lf_dnn", "tfn", "lmf", "misa", "mmim")
-ZOO_FRM = ("ef_lstm", "mfn", "graph_mfn", "mfm", "mctn", "mult")
+# MulT runs on frm_unalign only: its frm_align run (67 s of CLI time on
+# an H100 80GB HBM3 at 700 W) was cut for phase 18's time; the five models
+# above cover the frm_align path
+ZOO_FRM = ("ef_lstm", "mfn", "graph_mfn", "mfm", "mctn")
 # epochs a main_release run (the reference runs 100), cut to fit the phase
 ZOO_EPOCHS = {"utt": 1, "frm": 1, "topn": 1, "sweep": 1}
-# the card-vs-CPU step's gradients are held to the model's largest |cpu|
-# gradient (see same_weights_check): MulT's on frm_unalign carry fp32
-# rounding on the CPU alone (fp32 against fp64 from the same weights) of
-# 9.0e-3 of trans_l_with_a.fc1_5.weight's own max, 3.1e-5 of the largest
-ZOO_GRAD_FLOOR = 1.0
+# the card-vs-CPU step's gradients: each tensor is held to its own max
+# |cpu|, counted as at least this share of the model's largest gradient
+# (see same_weights_check), the tier-1 zoo test's floor: a gradient that is
+# 0 in exact arithmetic (a key bias under softmax) is rounding noise
+ZOO_GRAD_FLOOR = 1e-3
+# held to the model's largest gradient itself: MulT on frm_unalign carries
+# fp32 rounding on the CPU alone (fp32 against fp64 from the same weights)
+# of 9.0e-3 of trans_l_with_a.fc1_5.weight's own max, 3.1e-5 of the
+# largest, and the JAX package the same (ROADMAP §C)
+ZOO_GRAD_FLOOR_WIDE = {("mult", "frm_unalign"): 1.0}
 # folds of a main_release run: MER2023's protocol has 5 (the loader's
 # num_folder); fewer is a cut of the phase's time, set on the loader class
 ZOO_FOLDS = {"utt": 2, "frm": 2, "topn": 2, "sweep": 2}
+# the sweep's search draws and repeats (MERBench runs 50 and 6): cut from
+# 3 draws to 2 for phase 18's time
+ZOO_SWEEP = {"n_search": 2, "n_repeat": 2}
 # 12c's frame spans (store, width, fewest and most frames) at feat_scale 6,
 # written as main_release's compression leaves them: ceil(T / 6) frames a
 # clip, read at --feat_scale=1 (frm_align) or 2 (frm_unalign: 12 / 6), so
@@ -2964,11 +3009,14 @@ class RunProbe:
         self.loop.run_epoch, self.loop.init_model = self.orig
 
 
-def zoo_card_vs_cpu(torch, model: str, hp: dict, sets: dict, dev: str, feat_type: str):
+def zoo_card_vs_cpu(torch, model: str, hp: dict, sets: dict, dev: str, feat_type: str,
+                    worst: dict | None = None):
     """12c's check for ``model`` at ``hp`` with every dropout off (MISA's
     transformer layer too) and MFM's four prior samples drawn once on the
     CPU and handed to both sides: (a step's gradients, a trained model's
-    test logits), max |card - cpu| / max |cpu|."""
+    test logits), max |card - cpu| / max |cpu|, each gradient tensor at the
+    floor ``ZOO_GRAD_FLOOR_WIDE`` or ``ZOO_GRAD_FLOOR`` gives it; ``worst``
+    gets the gradient that sets the first number."""
     from mertools_tpu_torch.core.config import Args
     from mertools_tpu_torch.models.modules import Dropout
 
@@ -2984,8 +3032,9 @@ def zoo_card_vs_cpu(torch, model: str, hp: dict, sets: dict, dev: str, feat_type
         if hasattr(m, "prior_samples"):
             m.prior_samples = prior
 
+    floor = ZOO_GRAD_FLOOR_WIDE.get((model, feat_type), ZOO_GRAD_FLOOR)
     return same_weights_check(torch, args, sets, dev, np.random.default_rng(0),
-                              prepare=prepare, floor=ZOO_GRAD_FLOOR)
+                              prepare=prepare, floor=floor, worst=worst)
 
 
 def zoo_sets(rng, feat_type: str, n: dict):
@@ -3014,7 +3063,7 @@ def fold_steps(n_train: int, epochs: int, folds: int, batch: int = 32) -> int:
 
 
 def zoo_line(label: str, res, secs: float, probe, n_train: int, epochs: int, folds: int,
-             d_grad, d_eval, card: str, t_check: float) -> str:
+             d_grad, d_eval, card: str, t_check: float, worst: dict) -> str:
     """How a phase-17 run went: its cv metrics, the first fold's seconds
     and training steps/s, the profiled last epoch and the card against the
     CPU."""
@@ -3031,8 +3080,10 @@ def zoo_line(label: str, res, secs: float, probe, n_train: int, epochs: int, fol
             f"outside run_cv: reading the stores, writing the results); the last "
             f"epoch under the profiler: wall {wall:.1f} ms, device busy {busy:.1f} "
             f"ms, idle share {1 - busy / wall:.3f} ({n_ev} device events); card vs "
-            f"CPU from the same weights: a step's gradients {d_grad:.3e} of the "
-            f"largest, test1 logits and valence after 2 epochs {d_eval:.3e} (limit "
+            f"CPU from the same weights: a step's gradients {d_grad:.3e} (each "
+            f"tensor's own max, at least {worst.get('floor')} of the largest; worst "
+            f"{worst.get('tensor')}, its max {worst.get('share', float('nan')):.2e} of the "
+            f"largest), test1 logits and valence after 2 epochs {d_eval:.3e} (limit "
             f"{FUSION_TOL}; {t_check:.1f} s) [{card}]")
 
 
@@ -3051,14 +3102,13 @@ def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
                      epochs=ZOO_EPOCHS, folds=ZOO_FOLDS):
     """17: every other fusion model of the zoo through ``main_release`` at
     MER2023's split sizes with its ``--seed=0`` hyperparameters: (a) the
-    utt models on UTT stores at 1024/1024/768, the recurrent and
-    transformer models on frm_align stores with 12c's frame spans, MulT on
-    frm_unalign too; cv WAF and emoval, s a fold, steps/s and the idle share
+    utt models on UTT stores at 1024/1024/768, the recurrent models on
+    frm_align stores with 12c's frame spans, MulT on frm_unalign; cv WAF and emoval, s a fold, steps/s and the idle share
     of the run's last epoch under the profiler; (b) each against the CPU
     from the same weights (12c's check, dropout off); (c) top-N fusion
     (``--fusion_topn=6``, AVT, ``attention_topn``) on 18 UTT stores at their
-    encoders' widths, the same numbers; (d) ``cli.sweep --n_search=3
-    --n_repeat=2`` over 12b's attention flags with the hyperparameters left
+    encoders' widths, the same numbers; (d) ``cli.sweep`` (``ZOO_SWEEP``'s
+    draws and repeats) over 12b's attention flags with the hyperparameters left
     to the search. ``epochs`` and ``folds`` (by group) are the phase's cuts
     of the protocol's 100 epochs and 5 folds."""
     from mertools_tpu_torch.cli import main_release, sweep
@@ -3078,6 +3128,7 @@ def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
     n_train = splits["train"]
     small = {"train": min(200, n_train // 2), "test1": min(40, n_train // 4)}
     results = {}
+    gates = []   # (run, gradients, logits, worst gradient): judged after every run
 
     def record(key, res, probe, group):
         fold_s = probe.first_fold_s()
@@ -3116,13 +3167,13 @@ def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
                   f"17 {model} {feat_type} cv {res.cv}")
             hp = seed0_hp(model)
             t0 = time.perf_counter()
+            worst = {}
             d_grad, d_eval = zoo_card_vs_cpu(torch, model, hp, zoo_sets(
-                np.random.default_rng(18), feat_type, small), dev, feat_type)
+                np.random.default_rng(18), feat_type, small), dev, feat_type, worst)
             print(zoo_line(f"a/b: {model} {feat_type} (hidden {hp['hidden_dim']}, "
                            f"seed-0 draw {hp})", res, secs, prof, n_train, ep, nf,
-                           d_grad, d_eval, card, time.perf_counter() - t0), flush=True)
-            check(d_grad <= FUSION_TOL, f"17 {model} {feat_type} card vs CPU gradients {d_grad}")
-            check(d_eval <= FUSION_TOL, f"17 {model} {feat_type} card vs CPU logits {d_eval}")
+                           d_grad, d_eval, card, time.perf_counter() - t0, worst), flush=True)
+            gates.append((f"{model} {feat_type}", d_grad, d_eval, worst))
             record(f"{model} {feat_type}", res, prof, group)
             torch.cuda.empty_cache()
 
@@ -3154,15 +3205,15 @@ def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
                                       both.emos[r], both.vals[r])
                 for s, r in (("train", slice(0, cut)), ("test1", slice(cut, None)))}
         t0 = time.perf_counter()
-        d_grad, d_eval = zoo_card_vs_cpu(torch, "attention_topn", hp, sets, dev, "utt")
+        worst = {}
+        d_grad, d_eval = zoo_card_vs_cpu(torch, "attention_topn", hp, sets, dev, "utt", worst)
         widths = [TOPN_WIDTHS[f] for f in fnames]
         print(zoo_line(f"c: top-N --fusion_topn=6 AVT attention_topn (hidden "
                        f"{hp['hidden_dim']}) on 18 UTT stores {dict(zip(fnames, widths))} "
                        f"({sum(widths)} floats a clip; written in {t_write:.1f} s)",
                        res, secs, prof, n_train, ep, nf, d_grad, d_eval, card,
-                       time.perf_counter() - t0), flush=True)
-        check(d_grad <= FUSION_TOL, f"17 top-N card vs CPU gradients {d_grad}")
-        check(d_eval <= FUSION_TOL, f"17 top-N card vs CPU logits {d_eval}")
+                       time.perf_counter() - t0, worst), flush=True)
+        gates.append(("top-N", d_grad, d_eval, worst))
         record("topn", res, prof, "topn")
         del topn
 
@@ -3182,31 +3233,33 @@ def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
         main_release.main = recording  # the sweep calls it by name
         try:
             t0 = time.perf_counter()
-            with mer2023_folds(nf), RunProbe(torch, 5 * ep * nf) as p:
-                _, out = quiet(sweep.main, ["--n_search=3", "--n_repeat=2", "--", *flags])
+            n_s, n_r = ZOO_SWEEP["n_search"], ZOO_SWEEP["n_repeat"]
+            with mer2023_folds(nf), RunProbe(torch, (n_s + n_r) * ep * nf) as p:
+                _, out = quiet(sweep.main, [f"--n_search={n_s}", f"--n_repeat={n_r}", "--",
+                                            *flags])
             secs = time.perf_counter() - t0
         finally:
             main_release.main = run_one
         line = json.loads(out.strip().splitlines()[-1])
         scores = [float(r.cv["emofscore"]) for _, r in calls]  # the sweep's key
-        best = int(np.argmax(scores[:3]))
+        best = int(np.argmax(scores[:n_s]))
         hp = calls[best][1].chosen_hp
-        carried = all(f"--{k}={v}" in argv for argv, _ in calls[3:] for k, v in hp.items())
-        check(len(calls) == 5 and carried, f"17 sweep calls {[a for a, _ in calls]}")
-        check(line["n_search"] == 3 and line["n_repeat"] == 2
+        carried = all(f"--{k}={v}" in argv for argv, _ in calls[n_s:] for k, v in hp.items())
+        check(len(calls) == n_s + n_r and carried, f"17 sweep calls {[a for a, _ in calls]}")
+        check(line["n_search"] == n_s and line["n_repeat"] == n_r
               and abs(line["best_search"] - scores[best]) < 1e-12,
               f"17 sweep line {line}")
         durations = [r.duration for _, r in calls]
         wall, busy, _ = p.prof
         fold_s = float(np.mean(np.diff(p.starts)[::nf]))  # each run's first fold
-        print(f"[17 zoo] d: cli.sweep --n_search=3 --n_repeat=2 over 12b's attention "
-              f"flags ({ep} epoch(s) x {nf} folds a run, hyperparameters searched): "
-              f"search cv WAF {[round(x, 4) for x in scores[:3]]}, winner run {best} "
+        print(f"[17 zoo] d: cli.sweep --n_search={n_s} --n_repeat={n_r} over 12b's "
+              f"attention flags ({ep} epoch(s) x {nf} folds a run, hyperparameters "
+              f"searched): search cv WAF {[round(x, 4) for x in scores[:n_s]]}, winner run {best} "
               f"{hp} carried into both repeats; the JSON line {line}; "
               f"first folds {fold_s:.3f} s, "
               f"{fold_steps(n_train, ep, nf) / fold_s:.1f} training steps/s; run_cv "
               f"{np.mean(durations):.1f} s a run; "
-              f"{secs:.1f} s for the 5 runs; the last repeat's last epoch under the "
+              f"{secs:.1f} s for the {n_s + n_r} runs; the last repeat's last epoch under the "
               f"profiler: wall {wall:.1f} ms, busy {busy:.1f} ms, idle share "
               f"{1 - busy / wall:.3f} [{card}]", flush=True)
         results["sweep"] = dict(wall=wall, busy=busy, fold_s=fold_s,
@@ -3215,7 +3268,496 @@ def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
     print(f"[17 zoo] phase 17 took {time.perf_counter() - t_phase:.1f} s; idle "
           f"shares { {k: round(1 - r['busy'] / r['wall'], 3) for k, r in results.items()} } "
           f"[{card}]", flush=True)
+    failed = [(label, g, e, w) for label, g, e, w in gates
+              if g > FUSION_TOL or e > FUSION_TOL]
+    check(not failed, f"17 card vs CPU over {FUSION_TOL}: {failed}")
     return results
+
+
+# ------------------------------------------------------------ serving (18)
+# TinyLlama-1.1B (phase 10's geometry) with AffectGPT's LoRA r 16 on the
+# seven projections, as inference_mllm serves it
+SERVE_LLM = dict(vocab_size=32000, hidden_size=2048, num_layers=22, num_heads=32,
+                 num_kv_heads=4, intermediate_size=5632, lora_r=16)
+# (a) 8 ragged token prompts of 64-448 tokens (one bucket of 448), 64 and
+# 128 new tokens for the marginal rate, each timed the fastest of ``reps``
+# calls
+SERVE_MIX = {"B": 8, "lo": 64, "hi": 448, "new": (64, 128), "reps": 1}
+# (b) the engine: 64 token-id requests of 16-448 tokens with budgets of
+# 16-128 new tokens, 16 slots, chunks of 32
+ENGINE_MIX = {"n": 64, "lo": 16, "hi": 448, "new_lo": 16, "new_hi": 128, "slots": 16,
+              "chunk": 32, "buckets": (32, 64, 128, 256, 512)}
+# (d) inference_mllm's AffectGPT: phase 10's Q-Formers, CLIP-L FRA (768)
+# and HuBERT-large FRA (1024) stores, the CLI's 64-frame caps
+SERVE_AFFECT = {"video_dim": 768, "audio_dim": 1024, "frames": 64, "clips": 16,
+                "qformer": dict(hidden_size=768, num_layers=2, num_heads=12,
+                                intermediate_size=3072)}
+# the checks run at full width with this many layers, fp32
+CHECK_LAYERS = 2
+# max |a - b| / max |b|: the KV-cached decode against LLM.forward, w8
+# against its dequantized weights, int8 KV against full precision (the JAX
+# package's ~1e-2 logit class, with headroom), the card against the CPU
+SERVE_TOL = {"cached": 1e-3, "w8": 1e-3, "kv_int8": 5e-2, "cpu": 1e-4}
+
+
+class LLMCharTokenizer:
+    """A character-level stand-in for TinyLlama's tokenizer (no tokenizer
+    file is in the repository, and the card's machine has no
+    ``transformers``): BOS 1, EOS 2, one id a character inside the
+    ``vocab``-entry vocabulary; ``decode`` gives each id a CJK character, so
+    decoded text is printable and alphabetic. Plain encoding, no chat
+    template."""
+
+    bos_token_id, eos_token_id, pad_token_id, chat_template = 1, 2, 0, None
+
+    def __init__(self, vocab: int = 32000):
+        self.vocab = vocab
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> list:
+        return ([self.bos_token_id] if add_special_tokens else []) + [
+            3 + ord(c) % (self.vocab - 3) for c in text]
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return "".join(chr(0x4E00 + (int(i) - 3) % 20000) for i in ids
+                       if int(i) >= 3 or not skip_special_tokens)
+
+
+def serving_prompts(rng, n: int, lo: int, hi: int, vocab: int) -> list:
+    """``n`` seeded token prompts of ``lo``-``hi`` tokens, the shortest and
+    the longest among them, ids in [3, vocab)."""
+    lens = ([lo, hi] + rng.integers(lo, hi + 1, n - 2).tolist())[:n]
+    return [rng.integers(3, vocab, size=int(n_tok)).tolist() for n_tok in lens]
+
+
+def engine_requests(rng, mix: dict, vocab: int) -> list:
+    """(token ids, max_new_tokens) of ``mix["n"]`` requests: prompts as
+    :func:`serving_prompts`, budgets drawn from ``new_lo``-``new_hi``."""
+    prompts = serving_prompts(rng, mix["n"], mix["lo"], mix["hi"], vocab)
+    news = rng.integers(mix["new_lo"], mix["new_hi"] + 1, len(prompts))
+    news[:2] = mix["new_lo"], mix["new_hi"]
+    return list(zip(prompts, news.tolist()))
+
+
+def pad_prompts(torch, prompts: list, S: int, dev):
+    """Right-padded (B, S) token ids and mask on ``dev``."""
+    ids = np.zeros((len(prompts), S), np.int64)
+    mask = np.zeros((len(prompts), S), np.int64)
+    for b, p in enumerate(prompts):
+        ids[b, : len(p)], mask[b, : len(p)] = p, 1
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+
+
+def marginal_rate(times: dict, B: int) -> tuple[float, float]:
+    """(ms a decode step, tokens/s) from the wall ms of two ``generate``
+    calls that differ only in ``max_new_tokens`` ({new tokens: ms}). Fails
+    unless the longer call took longer (bench.py's marginal rate has no
+    such guard)."""
+    (n0, t0), (n1, t1) = sorted(times.items())
+    check(t1 - t0 > 0, f"marginal decode rate: {n1} new tokens took {t1:.1f} ms, "
+                       f"{n0} took {t0:.1f} ms")
+    step = (t1 - t0) / (n1 - n0)
+    return step, B * 1e3 / step
+
+
+def decode_step_bound(model, B: int, kv_tokens: int, kv_int8: bool) -> tuple[float, str, float]:
+    """(bound ms, "bytes" or "operations", bytes) of one decode step of
+    ``B`` rows: every weight read once (the embedding table only for its B
+    rows) and ``kv_tokens`` cached K and V entries summed over the rows,
+    each read once; the operations are 2 a weight a row plus both
+    attention products."""
+    cfg = model.cfg
+    hd = cfg.hidden_size // cfg.num_heads
+    table = model.embed_tokens.weight
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in [*model.parameters(), *model.buffers()] if t is not table)
+    w_bytes += B * cfg.hidden_size * table.element_size()
+    per_entry = hd + 4 if kv_int8 else hd * 2          # int8 codes + fp32 scale, or bf16
+    kv_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * kv_tokens * per_entry
+    n_w = sum(t.numel() for t in [*model.parameters(), *model.buffers()]
+              if t is not table and t.dim() == 2)
+    flops = 2.0 * B * n_w + 4.0 * cfg.num_layers * cfg.num_heads * hd * kv_tokens
+    return (*bound(w_bytes + kv_bytes, flops, "bf16"), w_bytes + kv_bytes)
+
+
+def no_launches(wrappers, label: str) -> dict:
+    """The kernels' counts; fails if any of them launched."""
+    counts = {w.__name__: w.launches for w in wrappers}
+    check(not any(counts.values()), f"{label} launched {counts}")
+    return counts
+
+
+def wall_ms(torch, fn, dev):
+    """(wall ms of ``fn()`` with the device drained before and after, its
+    result)."""
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def serving_llm(torch, tl, cfg, dev, seed: int):
+    """The port's LLM at ``cfg`` on ``dev``, drawn by ``llm.init_weights``
+    from ``seed``, with the LoRA B matrices drawn too (normal 0.02) so the
+    LoRA deltas take part."""
+    model = tl.LLM(cfg, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    tl.init_weights(model, gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_B"):
+                p.normal_(0.0, 0.02, generator=gen)
+    return model.eval()
+
+
+def write_hf_llm(torch, d: str, model) -> str:
+    """A local HF-layout causal-LM directory of ``model`` (the LoRA deltas
+    left out): a Llama ``config.json`` and a bf16 ``pytorch_model.bin``
+    with the keys under ``model.``."""
+    cfg = model.cfg
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"model_type": "llama", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads,
+                   "intermediate_size": cfg.intermediate_size,
+                   "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta}, f)
+    sd = {(k if k.startswith("lm_head") else f"model.{k}"): v.detach().to("cpu", torch.bfloat16)
+          for k, v in model.state_dict().items() if "lora_" not in k}
+    torch.save(sd, os.path.join(d, "pytorch_model.bin"))
+    return d
+
+
+@contextlib.contextmanager
+def stand_in_tokenizer(vocab: int):
+    """``core.checkpoint.load_tokenizer`` returns :class:`LLMCharTokenizer`
+    inside the block (phase 13b's way round the missing tokenizer files)."""
+    from mertools_tpu_torch.core import checkpoint
+
+    load = checkpoint.load_tokenizer
+    checkpoint.load_tokenizer = lambda path: LLMCharTokenizer(vocab)
+    try:
+        yield
+    finally:
+        checkpoint.load_tokenizer = load
+
+
+def serving_engine(torch, model, requests, mix: dict, dev, dtype=None, P: int = 0, **kw):
+    """(each request's tokens, the engine) of ``ContinuousBatcher`` over
+    ``requests`` submitted as token ids; ``P`` is the length of a shared
+    prefix passed in ``kw``."""
+    from mertools_tpu_torch.mllm.serve import ContinuousBatcher
+
+    eng = ContinuousBatcher(model, n_slots=mix["slots"],
+                            max_len=P + mix["buckets"][-1] + mix["new_hi"],
+                            max_new_tokens=mix["new_hi"], prefill_buckets=mix["buckets"],
+                            chunk=mix["chunk"], compute_dtype=dtype, device=dev, **kw)
+    rids = [eng.submit(prompt_ids=ids, max_new_tokens=n) for ids, n in requests]
+    out = eng.run()
+    return [out[r] for r in rids], eng
+
+
+def phase_serving(torch, card, dev: str = "cuda", llm=SERVE_LLM, mix=SERVE_MIX,
+                  engine=ENGINE_MIX, affect=SERVE_AFFECT) -> dict:
+    """18: AffectGPT generation and serving on the port's LLM at ``llm``'s
+    geometry with seeded weights: (a) ``generate``, bf16 greedy, on
+    ``mix``'s ragged prompts: prefill ms, a decode step's ms and tokens/s
+    from the marginal rate of two lengths (guarded), peak memory, the idle
+    share of one decode step and its bytes bound, then w8, int8 KV and both;
+    at full width and 2 layers in fp32 the cached decode against
+    ``LLM.forward``, w8 against its dequantized weights, int8 KV against
+    full precision, and the card against the CPU; (b) ``ContinuousBatcher``
+    on ``engine``'s requests, bf16 at full depth: requests/s, tokens/s and
+    a chunk's idle share; at 2 layers fp32 each request against
+    ``generate`` on its prompt alone, with and without a 32-token shared
+    prefix; (c) ``beam_generate`` (4 beams, B 2, 32 tokens) on the card
+    against the CPU; (d) ``inference_mllm`` on CLIP-L/HuBERT FRA stores
+    from a ``save_model`` AffectGPT (2 LLM layers) on the card against the
+    CPU, ``ovlabel_extraction --engine=continuous --w8 --bf16`` and
+    ``translate`` on a written HF-layout directory. Returns the rates."""
+    from mertools_tpu_torch.cli import inference_mllm, ovlabel_extraction, translate
+    from mertools_tpu_torch.mllm import affectgpt as ta
+    from mertools_tpu_torch.mllm import beam as tb
+    from mertools_tpu_torch.mllm import generate as tg
+    from mertools_tpu_torch.mllm import llm as tl
+    from mertools_tpu_torch.mllm import qformer as tq
+    from mertools_tpu_torch.mllm import runner as tr
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    cfg = tl.LLMConfig(**llm)
+    V = cfg.vocab_size
+    rng = np.random.default_rng(18)
+
+    # (a) generate at full depth: bf16, and w8 quantized from the fp32 draw
+    t0 = time.perf_counter()
+    full = serving_llm(torch, tl, cfg, dev, 18)
+    bf = tg.cast_llm_bf16(copy.deepcopy(full))
+    w8 = tg.cast_llm_bf16(tg.quantize_llm_w8(full))   # in place: the fp32 copy goes
+    del full
+    n_params = sum(p.numel() for p in bf.parameters())
+    print(f"[18 serving] a: LLM hidden {cfg.hidden_size}, {cfg.num_layers} layers, "
+          f"{cfg.num_heads} heads, {cfg.num_kv_heads} KV heads, FFN "
+          f"{cfg.intermediate_size}, vocab {V}, LoRA r {cfg.lora_r}: "
+          f"{n_params / 1e6:.1f} M params, bf16 and w8 (+ bf16) copies built in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    prompts = serving_prompts(rng, mix["B"], mix["lo"], mix["hi"], V)
+    B, S = len(prompts), tg.bucket_len(max(map(len, prompts)))
+    ids, mask = pad_prompts(torch, prompts, S, dev)
+    n_short, n_long = mix["new"]
+
+    def gen(model, n, kv_int8=False):
+        emb = model.embed_tokens.weight[ids].float() * mask[..., None]
+        return tg.generate(model, emb, mask, max_new_tokens=n, eos_token_id=-1,
+                           kv_int8=kv_int8)
+
+    emb_bf = bf.embed_tokens.weight[ids].float() * mask[..., None]
+    gen(bf, 4)   # warm-up: cuBLAS handles and the allocator's blocks
+    pre_ms = float(np.median([wall_ms(torch, lambda: tg.prefill(bf, emb_bf, mask, S + n_long),
+                                      dev)[0] for _ in range(3)]))
+    n_kv = int(mask.sum()) + B * n_long // 2            # a step halfway through
+    rates = {}
+    for label, model, kv in (("bf16", bf, False), ("w8", w8, False),
+                             ("kv_int8", bf, True), ("w8+kv_int8", w8, True)):
+        gen(model, 4, kv)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        times = {n: min(wall_ms(torch, lambda: gen(model, n, kv), dev)[0]
+                        for _ in range(mix["reps"])) for n in (n_short, n_long)}
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+        step_ms, tok_s = marginal_rate(times, B)
+        b_ms, b_by, b_bytes = decode_step_bound(model, B, n_kv, kv)
+        rates[label] = {"step_ms": step_ms, "tok_s": tok_s, "bound_ms": b_ms}
+        print(f"[18 serving] a: generate {label}, B {B} prompts of {mix['lo']}-{mix['hi']} "
+              f"tokens (bucket {S}), greedy: {n_short} new tokens {times[n_short]:.1f} ms, "
+              f"{n_long} {times[n_long]:.1f} ms; marginal {step_ms:.3f} ms a step, "
+              f"{tok_s:.1f} tokens/s ({B * n_long * 1e3 / times[n_long]:.1f} over the whole "
+              f"{n_long}-token call); peak memory {peak:.2f} GiB; a step's bound "
+              f"{b_ms:.4f} ms by {b_by} ({b_bytes / 1e9:.3f} GB: weights + {n_kv} cached "
+              f"tokens' K and V, {HBM_BPS / 1e12:.2f} TB/s), {b_ms / step_ms:.1%} of it "
+              f"[{card}]", flush=True)
+    print(f"[18 serving] a: prefill of the {B} x {S} bucket (bf16, median of 3): "
+          f"{pre_ms:.1f} ms [{card}]", flush=True)
+    if cuda:   # one decode step under the profiler, halfway into a 128-token run
+        logits, kc, vc, n_valid = tg.prefill(bf, emb_bf, mask, S + n_long)
+        slot_mask = torch.zeros(B, S + n_long, dtype=torch.bool, device=dev)
+        slot_mask[:, :S] = mask.bool()
+        slot_mask[:, S] = True
+        tok = logits.argmax(-1)
+        with torch.inference_mode():
+            wall, busy, top, left, with_ranges = device_profile(
+                torch, lambda: tg._step(bf, tok, n_valid, S, kc, vc, slot_mask))
+        print(f"[18 serving] a: profile of one bf16 decode step ({wall:.2f} ms under "
+              f"the profiler): {profile_line(busy, top, left, with_ranges, wall)} [{card}]",
+              flush=True)
+        del kc, vc
+    del w8
+
+    # the checks: full width, CHECK_LAYERS layers, fp32
+    small = serving_llm(torch, tl, dataclasses.replace(cfg, num_layers=CHECK_LAYERS), dev, 19)
+    cpu = copy.deepcopy(small).cpu()
+    cp = serving_prompts(np.random.default_rng(19), 3, 16, min(160, mix["hi"]), V)
+    cS = tg.bucket_len(max(map(len, cp)))
+    cids, cmask = pad_prompts(torch, cp, cS, dev)
+    cemb = small.embed_tokens.weight[cids].detach() * cmask[..., None]
+    toks = tg.generate(small, cemb, cmask, max_new_tokens=16, eos_token_id=-1)
+    cached = tg.decode_logits(small, cemb, cmask, toks)
+    d_cached = rel_err(torch, cached, tg.teacher_forced_logits(small, cemb, cmask, toks))
+    d_kv8 = rel_err(torch, tg.decode_logits(small, cemb, cmask, toks, kv_int8=True), cached)
+    w8s = tg.quantize_llm_w8(copy.deepcopy(small))
+    deq = copy.deepcopy(small)
+    with torch.no_grad():
+        for name, mod in w8s.named_modules():
+            if isinstance(mod, tg.W8Linear):
+                deq.get_submodule(name).weight.copy_(mod.dequantized())
+    d_w8 = rel_err(torch, tg.prefill(w8s, cemb, cmask, cS)[0], tg.prefill(deq, cemb, cmask, cS)[0])
+    del w8s, deq
+    d_cpu = rel_err(torch, tg.prefill(small, cemb, cmask, cS)[0].cpu(),
+                        tg.prefill(cpu, cemb.cpu(), cmask.cpu(), cS)[0])
+    toks_cpu = tg.generate(cpu, cemb.cpu(), cmask.cpu(), max_new_tokens=16, eos_token_id=-1)
+    same_greedy = bool(torch.equal(toks.cpu(), toks_cpu))
+    print(f"[18 serving] a: checks at full width, {CHECK_LAYERS} layers, fp32, {len(cp)} "
+          f"prompts of 16-{max(map(len, cp))} tokens, 16 new: KV-cached decode against "
+          f"LLM.forward teacher-forced {d_cached:.3e} (limit {SERVE_TOL['cached']}); w8 "
+          f"against its dequantized weights {d_w8:.3e} (limit {SERVE_TOL['w8']}); int8 KV "
+          f"against full precision {d_kv8:.3e} of max logit (limit {SERVE_TOL['kv_int8']}); "
+          f"card against CPU: prefill logits {d_cpu:.3e} (limit {SERVE_TOL['cpu']}), greedy "
+          f"tokens {'equal' if same_greedy else 'DIFFER'} [{card}]", flush=True)
+    check(d_cached <= SERVE_TOL["cached"], f"18a cached decode vs forward {d_cached}")
+    check(d_w8 <= SERVE_TOL["w8"], f"18a w8 vs dequantized {d_w8}")
+    check(d_kv8 <= SERVE_TOL["kv_int8"], f"18a int8 KV vs full precision {d_kv8}")
+    check(d_cpu <= SERVE_TOL["cpu"], f"18a card vs CPU prefill logits {d_cpu}")
+    check(same_greedy, "18a card vs CPU greedy tokens differ")
+
+    # (b) the engine, bf16 at full depth
+    reqs = engine_requests(rng, engine, V)
+    serving_engine(torch, bf, reqs[:2], engine, dev, "bf16", eos_token_id=2)   # warm-up
+    ms, (outs, _) = wall_ms(torch, lambda: serving_engine(torch, bf, reqs, engine, dev, "bf16",
+                                                          eos_token_id=2), dev)
+    check(all(1 <= len(o) <= n for o, (_, n) in zip(outs, reqs)), "18b a request's length")
+    n_tok = sum(map(len, outs))
+    rates["engine"] = {"req_s": len(reqs) * 1e3 / ms, "tok_s": n_tok * 1e3 / ms}
+    print(f"[18 serving] b: ContinuousBatcher bf16, {len(reqs)} token-id requests of "
+          f"{engine['lo']}-{engine['hi']} tokens, budgets {engine['new_lo']}-"
+          f"{engine['new_hi']}, {engine['slots']} slots, chunk {engine['chunk']}, EOS 2: "
+          f"{ms / 1e3:.2f} s, {rates['engine']['req_s']:.2f} requests/s, "
+          f"{rates['engine']['tok_s']:.1f} tokens/s ({n_tok} tokens) [{card}]", flush=True)
+    if cuda:   # one chunk of a full engine under the profiler
+        from mertools_tpu_torch.mllm.serve import ContinuousBatcher
+
+        eng = ContinuousBatcher(bf, n_slots=engine["slots"],
+                                max_len=engine["buckets"][-1] + engine["new_hi"],
+                                eos_token_id=-1, max_new_tokens=engine["new_hi"],
+                                prefill_buckets=engine["buckets"], chunk=engine["chunk"],
+                                compute_dtype="bf16", device=dev)
+        for p, _ in reqs[: engine["slots"]]:
+            eng.submit(prompt_ids=p)
+        eng.step()   # admission and the first chunk
+        wall, busy, top, left, with_ranges = device_profile(torch, eng.step)
+        print(f"[18 serving] b: profile of one chunk ({engine['chunk']} steps x "
+              f"{engine['slots']} slots, {wall:.1f} ms under the profiler): "
+              f"{profile_line(busy, top, left, with_ranges, wall)} [{card}]", flush=True)
+        del eng
+    del bf
+    if cuda:
+        torch.cuda.empty_cache()
+
+    small_mix = {**engine, "slots": 4, "chunk": 8, "new_lo": 4, "new_hi": 24,
+                 "buckets": (32, 64, 128, 256), "n": 12, "hi": min(200, engine["hi"])}
+    creqs = engine_requests(np.random.default_rng(20), small_mix, V)
+    pre = np.random.default_rng(21).integers(3, V, 32).tolist()
+    table = small.embed_tokens.weight.detach()
+    bad = []
+    for P in (0, 32):
+        kw = {}
+        if P:
+            kw = dict(prefix=tg.prefill_prefix(small, table[torch.as_tensor(pre, device=dev)]),
+                      prefix_token_ids=pre, P=P)
+        got, _ = serving_engine(torch, small, creqs, small_mix, dev, eos_token_id=-1, **kw)
+        for (ids_r, n), toks_r in zip(creqs, got):
+            full_ids = torch.as_tensor(pre[:P] + ids_r, device=dev)
+            alone = tg.generate(small, table[full_ids][None], torch.ones_like(full_ids)[None],
+                                max_new_tokens=n, eos_token_id=-1)[0].tolist()
+            if toks_r != alone:
+                bad.append((P, len(ids_r), n))
+    print(f"[18 serving] b: at {CHECK_LAYERS} layers fp32, {len(creqs)} requests of "
+          f"16-{small_mix['hi']} tokens, budgets 4-24, 4 slots, chunk 8: each request's "
+          f"tokens against generate on its prompt alone, without and with a 32-token "
+          f"shared prefix: {len(bad)} of {2 * len(creqs)} differ {bad[:4]} [{card}]",
+          flush=True)
+    check(not bad, f"18b engine vs generate differ on {bad}")
+
+    # (c) beam search, card against CPU
+    bp = serving_prompts(np.random.default_rng(22), 2, 40, min(70, mix["hi"]), V)
+    bS = max(map(len, bp))
+    bids, bmask = pad_prompts(torch, bp, bS, dev)
+    bemb = table[bids] * bmask[..., None]
+    t0 = time.perf_counter()
+    beams = tb.beam_generate(small, bemb, bmask, num_beams=4, max_new_tokens=32,
+                             eos_token_id=2)
+    b_s = time.perf_counter() - t0
+    beams_cpu = tb.beam_generate(cpu, bemb.cpu(), bmask.cpu(), num_beams=4,
+                                 max_new_tokens=32, eos_token_id=2)
+    print(f"[18 serving] c: beam_generate 4 beams, B 2 ({[len(p) for p in bp]} tokens), "
+          f"32 new, fp32 at {CHECK_LAYERS} layers: {b_s:.2f} s on the card; beams "
+          f"{'equal' if beams == beams_cpu else 'DIFFER'} to the CPU's (lengths "
+          f"{[len(b) for b in beams]}) [{card}]", flush=True)
+    check(beams == beams_cpu, f"18c beams differ: {beams} vs {beams_cpu}")
+
+    # (d) the CLIs
+    with tempfile.TemporaryDirectory() as d, stand_in_tokenizer(V):
+        qf = affect["qformer"]
+        acfg = ta.AffectGPTConfig(
+            llm=small.cfg, video_qformer=tq.QFormerConfig(num_queries=32, **qf),
+            audio_qformer=tq.QFormerConfig(num_queries=8, **qf),
+            video_dim=affect["video_dim"], audio_dim=affect["audio_dim"],
+            max_video_frames=affect["frames"], max_audio_frames=affect["frames"])
+        amodel = ta.build(acfg, dev, seed=23)
+        with torch.no_grad():
+            amodel.llm.load_state_dict(small.state_dict())
+        ckpt = tr.save_model(os.path.join(d, "model"), amodel)
+        del amodel
+        crng = np.random.default_rng(24)
+        names = [f"clip_{i:03d}" for i in range(affect["clips"])]
+        for sub, dim, lo, hi in (("v", affect["video_dim"], 20, 120),
+                                 ("a", affect["audio_dim"], 100, 500)):
+            os.makedirs(os.path.join(d, sub))
+            for n in names:
+                np.save(os.path.join(d, sub, f"{n}.npy"),
+                        crng.normal(size=(crng.integers(lo, hi), dim)).astype(np.float32))
+        with open(os.path.join(d, "sub.csv"), "w", encoding="utf-8") as f:
+            f.write("name,sentence\n" + "".join(
+                f"{n},{CharTokenizer.sentence(crng, int(crng.integers(8, 40)))}\n" for n in names))
+        argv = [f"--ckpt={ckpt}", "--tokenizer=stand-in",
+                f"--video_feat_dir={os.path.join(d, 'v')}",
+                f"--audio_feat_dir={os.path.join(d, 'a')}",
+                f"--subtitle_csv={os.path.join(d, 'sub.csv')}", "--batch=8",
+                "--max_new_tokens=16", f"--max_video_frames={affect['frames']}",
+                f"--max_audio_frames={affect['frames']}"]
+        got = {}
+        for leg in (dev, "cpu"):
+            t0 = time.perf_counter()
+            out = os.path.join(d, f"name2reason_{leg}.npz")
+            quiet(inference_mllm.main, argv + [f"--save_path={out}", "--device", leg])
+            got[leg] = (np.load(out, allow_pickle=True)["name2reason"].item(),
+                        time.perf_counter() - t0)
+        same = got[dev][0] == got["cpu"][0]
+        print(f"[18 serving] d: inference_mllm on {len(names)} clips of CLIP-L FRA "
+              f"({affect['video_dim']}) and HuBERT FRA ({affect['audio_dim']}) stores, "
+              f"AffectGPT (LLM {CHECK_LAYERS} layers at full width, fp32) from "
+              f"runner.save_model: {got[dev][1]:.1f} s on the card, {got['cpu'][1]:.1f} s on "
+              f"the CPU; name2reason texts {'equal' if same else 'DIFFER'} [{card}]",
+              flush=True)
+        check(sorted(got[dev][0]) == names and same, "18d inference_mllm card vs CPU")
+
+        hf = write_hf_llm(torch, os.path.join(d, "hf"), small)
+        reasons = {n: CharTokenizer.sentence(crng, int(crng.integers(20, 80))) for n in names[:8]}
+        np.savez_compressed(os.path.join(d, "reasons.npz"),
+                            name2reason=np.array(reasons, dtype=object))
+        t0 = time.perf_counter()
+        quiet(ovlabel_extraction.main, [
+            f"--reason_npz={os.path.join(d, 'reasons.npz')}", f"--model={hf}",
+            f"--store_npz={os.path.join(d, 'openset.npz')}", "--engine=continuous",
+            "--w8", "--bf16", "--batch=4", "--max_new_tokens=16", "--device", dev])
+        t_ov = time.perf_counter() - t0
+        ov = np.load(os.path.join(d, "openset.npz"), allow_pickle=True)
+        labels = dict(zip(map(str, ov["filenames"]), map(str, ov["fileitems"])))
+        with open(os.path.join(d, "trans.csv"), "w", encoding="utf-8") as f:
+            f.write("name,chinese\n" + "".join(f"{n},{s}\n" for n, s in reasons.items())
+                    + "empty,\n")
+        t0 = time.perf_counter()
+        quiet(translate.main, [f"--trans_path={os.path.join(d, 'trans.csv')}",
+                               f"--save_path={os.path.join(d, 'eng.csv')}", f"--model={hf}",
+                               "--batch=4", "--max_new_tokens=16", "--device", dev])
+        t_tr = time.perf_counter() - t0
+        with open(os.path.join(d, "eng.csv"), newline="", encoding="utf-8") as f:
+            eng_rows = {r["name"]: r["english"] for r in csv.DictReader(f)}
+    print(f"[18 serving] d: ovlabel_extraction --engine=continuous --w8 --bf16 on "
+          f"{len(labels)} reasons ({t_ov:.1f} s), {sum(map(bool, labels.values()))} "
+          f"non-empty label sets; translate on {len(eng_rows)} rows ({t_tr:.1f} s), "
+          f"{sum(map(bool, eng_rows.values()))} non-empty; both from a written HF-layout "
+          f"directory ({CHECK_LAYERS} layers at full width) [{card}]", flush=True)
+    check(sorted(labels) == sorted(reasons) and any(labels.values()),
+          f"18d ovlabel_extraction wrote {labels}")
+    check(all(eng_rows[n] for n in reasons) and eng_rows["empty"] == "",
+          f"18d translate wrote {eng_rows}")
+    print(f"[18 serving] phase 18 took {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return rates
+
+
+def serving_phase(torch, wrappers, card) -> dict:
+    """Phase 18 with the kernels' counts set to 0 before it and read after
+    it: the JAX serving path reaches no Pallas kernel, so neither does the
+    port's."""
+    for w in wrappers:
+        w.launches = 0
+    rates = phase_serving(torch, card)
+    counts = no_launches(wrappers, "phase 18")
+    print(f"[18 serving] kernel launches in phase 18: {counts} [{card}]", flush=True)
+    return rates
 
 
 def zoo_phase(torch, wrappers, card) -> None:
@@ -3272,7 +3814,8 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--b3-times"] and len(argv) == 2:
         return b3_times_of(torch, argv[1])
     zoo_only = argv == ["--fusion-zoo"]
-    if argv and not zoo_only:
+    serving_only = argv == ["--serving"]
+    if argv and not (zoo_only or serving_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(HERE, "mertools_tpu_torch")):
@@ -3300,10 +3843,10 @@ def main(argv: list[str]) -> int:
     print(f"[1 device] {kind}; nvidia-smi: {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     wrappers = [fa.flash_attention, mf.mel_power] + [getattr(fc, n) for n in B3_WRAPPERS]
-    if zoo_only:
+    if zoo_only or serving_only:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        zoo_phase(torch, wrappers, card)
+        (zoo_phase if zoo_only else serving_phase)(torch, wrappers, card)
         return 0
     path, secs, log = _kernels.build()
     usage = check_no_spills(log)
@@ -3370,6 +3913,8 @@ def main(argv: list[str]) -> int:
 
     torch.cuda.empty_cache()
     zoo_phase(torch, wrappers, card)
+    torch.cuda.empty_cache()
+    serving_phase(torch, wrappers, card)
 
     b, m = kres["bf16"], mres
     kernels = [{

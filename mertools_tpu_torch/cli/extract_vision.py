@@ -47,8 +47,8 @@ def build_extractor(args):
                          f"remaining encoder zoo); use python -m "
                          f"mertools_tpu.cli.extract_vision")
     if args.compute_dtype == "int8":
-        raise SystemExit("--compute_dtype int8 (w8a8 encoder matmuls, "
-                         "ops/quant.py from ROADMAP A12) is not ported yet "
+        raise SystemExit("--compute_dtype int8 (the encoder's matmuls through "
+                         "ops/quant.int8_dot_general) is not ported yet "
                          "(ROADMAP A17)")
     if args.finetuned_ckpt:
         raise SystemExit("--finetuned_ckpt restores an orbax checkpoint of the "

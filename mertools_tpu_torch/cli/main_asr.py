@@ -10,9 +10,10 @@ Subcommands mirror the reference entry points:
 - ``generate``: wav dir -> transcription.csv (name,sentence) — wenet decode
   loop replaced by batched Whisper on ``--device`` (main-asr.py:11-33).
 - ``punctuate``: punctuation restoration of an existing CSV
-  (paddlespeech TextExecutor replacement, main-asr.py:37-59): rule-based
-  segmentation (period append). The LLM pass (``--model``) needs the MLLM
-  modules, which are not ported yet.
+  (paddlespeech TextExecutor replacement, main-asr.py:37-59): with
+  ``--model`` (a local HF causal-LM directory) a batched LLM pass on
+  ``--device`` whose outputs must keep every word, else rule-based
+  segmentation (period append).
 - ``merge``: prefer human-checked transcripts (main-asr.py:63-93).
 """
 
@@ -62,6 +63,11 @@ def cmd_generate(args):
     print(f"wrote {len(names)} transcripts -> {args.save_path}")
 
 
+PUNCT_PROMPT = (
+    "Add punctuation marks to the following transcript. Do not add, remove "
+    "or change any words — only insert punctuation. Answer with the "
+    "punctuated transcript only.\nTranscript: {text}\nPunctuated:")
+
 _PUNCT_CHARS = set("。，、！？；：.,!?;: \t\"'“”‘’（）()[]【】-—…~·")
 
 
@@ -98,17 +104,31 @@ def restore_punctuation(sentences: list[str], decoded: dict) -> tuple[list[str],
 
 def cmd_punctuate(args):
     """Punctuation restoration (reference: paddlespeech TextExecutor per row,
-    main-asr.py:37-59): rule-based segmentation. ``--model`` (the batched
-    local-LLM pass) exits naming the ROADMAP item that ports it."""
-    if args.model:
-        raise SystemExit("punctuate --model runs the local-LLM pass of the "
-                         "MLLM modules, which are not ported to "
-                         "mertools_tpu_torch yet (ROADMAP A12); use python -m "
-                         "mertools_tpu.cli.main_asr punctuate --model, or "
-                         "omit --model for rule-based segmentation")
+    main-asr.py:37-59). With ``--model``: batched local-LLM restoration
+    through ``generate.batch_generate_texts``; outputs that fail the
+    content-preservation check fall back to rule-based segmentation.
+    Without ``--model``: rule-based only."""
     names, _ = _read_csv_col(args.old_path, "name")
     sents, _ = _read_csv_col(args.old_path, "sentence")
-    out, _ = restore_punctuation([(s or "").strip() for s in sents], {})
+    sents = [(s or "").strip() for s in sents]
+
+    decoded = {}
+    if args.model:
+        from ..mllm.generate import batch_generate_texts
+        from .ovlabel_extraction import load_causal_lm
+
+        model, tok = load_causal_lm(args.model, args.device, args.gpu)
+        ids_by_idx = {i: tok.encode(PUNCT_PROMPT.format(text=s[:1000]))
+                      for i, s in enumerate(sents) if s}
+        decoded = batch_generate_texts(
+            model, ids_by_idx, tok, batch=args.batch,
+            max_new_tokens=args.max_new_tokens, progress=print,
+            device=model.norm.weight.device)
+
+    out, accepted = restore_punctuation(sents, decoded)
+    if args.model:
+        print(f"LLM punctuation accepted on {accepted}/"
+              f"{sum(bool(s) for s in sents)} rows (rest rule-based)")
     _write_csv(args.new_path, ["name", "sentence"], zip(names, out))
     print(f"wrote {len(out)} refined transcripts -> {args.new_path}")
 
@@ -143,11 +163,12 @@ def main(argv=None):
     r.add_argument("--old_path", required=True)
     r.add_argument("--new_path", required=True)
     r.add_argument("--model", default=None,
-                   help="HF causal-LM checkpoint for the punctuation pass "
-                        "(not ported yet: ROADMAP A12); omit for rule-based "
-                        "segmentation")
+                   help="HF causal-LM checkpoint directory for the "
+                        "punctuation pass (omit for rule-based segmentation only)")
     r.add_argument("--batch", type=int, default=8)
     r.add_argument("--max_new_tokens", type=int, default=192)
+    r.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    r.add_argument("--gpu", type=int, default=0, help="CUDA device index")
     r.set_defaults(fn=cmd_punctuate)
 
     m = sub.add_parser("merge")

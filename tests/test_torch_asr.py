@@ -165,6 +165,8 @@ def test_asr_cli_merge_and_punctuate(tmp_path):
         rows = {r["name"]: r["sentence"] for r in csv.DictReader(f)}
     assert rows == {"a": "hello there。", "b": "你好。", "c": ""}
 
-    with pytest.raises(SystemExit, match="A12"):
+    # --model runs the LLM pass now (no ROADMAP exit): a directory without
+    # a checkpoint is refused by the loader
+    with pytest.raises(SystemExit, match="config.json"):
         asr_main(["punctuate", f"--old_path={new}", f"--new_path={ref}",
-                  "--model=some-llm"])
+                  f"--model={tmp_path}", "--device", "cpu"])

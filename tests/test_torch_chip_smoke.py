@@ -6,6 +6,7 @@ import os
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -503,3 +504,99 @@ def test_phase17_union_is_the_busy_sum():
     assert chip_smoke.union_ms(a, b) == pytest.approx(chip_smoke.busy_ms(evs), rel=1e-12)
     assert chip_smoke.union_ms(np.array([0.0, 5.0]), np.array([10.0, 7.0])) == 0.01
     assert chip_smoke.union_ms(np.array([]), np.array([])) == 0.0
+
+
+def test_phase18_prompt_mix_spans_the_bucket_and_the_budgets():
+    prompts = chip_smoke.serving_prompts(np.random.default_rng(18), 8, 64, 448, 32000)
+    lens = sorted(map(len, prompts))
+    assert len(prompts) == 8 and lens[0] == 64 and lens[-1] == 448
+    assert all(3 <= t < 32000 for p in prompts for t in p)
+    reqs = chip_smoke.engine_requests(np.random.default_rng(18), chip_smoke.ENGINE_MIX, 32000)
+    assert len(reqs) == 64
+    assert min(len(p) for p, _ in reqs) == 16 and max(len(p) for p, _ in reqs) == 448
+    assert min(n for _, n in reqs) == 16 and max(n for _, n in reqs) == 128
+
+
+def test_phase18_marginal_rate_needs_the_longer_call_to_take_longer():
+    step, tok_s = chip_smoke.marginal_rate({64: 500.0, 128: 900.0}, 8)
+    assert step == pytest.approx(6.25) and tok_s == pytest.approx(8 * 1e3 / 6.25)
+    for t128 in (500.0, 480.0):
+        with pytest.raises(RuntimeError, match="marginal decode rate"):
+            chip_smoke.marginal_rate({64: 500.0, 128: t128}, 8)
+
+
+def test_phase18_launch_check_fails_on_any_launch():
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    assert chip_smoke.no_launches([wrapper], "phase 18") == {"wrapper": 0}
+    wrapper.launches = 1
+    with pytest.raises(RuntimeError, match="phase 18 launched"):
+        chip_smoke.no_launches([wrapper], "phase 18")
+
+
+def test_phase18_decode_bound_counts_weights_once_and_the_cache():
+    """At TinyLlama's geometry (no LoRA, meta tensors): bf16 weights without
+    the embedding table plus B of its rows; int8 weights halve the linear
+    part; each cached token adds its K and V per layer."""
+    import dataclasses
+
+    import torch
+
+    from mertools_tpu_torch.mllm import generate as tg
+    from mertools_tpu_torch.mllm import llm as tl
+
+    cfg = tl.LLMConfig(**{**chip_smoke.SERVE_LLM, "lora_r": 0})
+    model = tl.LLM(cfg, device="meta").to(torch.bfloat16)
+    ms, by, n_bytes = chip_smoke.decode_step_bound(model, 8, 0, False)
+    n_w = sum(p.numel() for p in model.parameters()) - cfg.vocab_size * cfg.hidden_size
+    assert n_bytes == 2 * n_w + 2 * 8 * cfg.hidden_size and by == "bytes"
+    assert ms == pytest.approx(n_bytes / chip_smoke.HBM_BPS * 1e3)
+    _, _, with_kv = chip_smoke.decode_step_bound(model, 8, 1000, False)
+    assert with_kv - n_bytes == 2 * 22 * 4 * 1000 * 64 * 2
+    _, _, with_kv8 = chip_smoke.decode_step_bound(model, 8, 1000, True)
+    assert with_kv8 - n_bytes == 2 * 22 * 4 * 1000 * (64 + 4)
+    assert dataclasses.asdict(cfg)["num_layers"] == 22
+    w8 = tg.quantize_llm_w8(tl.LLM(dataclasses.replace(cfg, num_layers=1, vocab_size=64,
+                                                       hidden_size=64, num_heads=4,
+                                                       num_kv_heads=2,
+                                                       intermediate_size=96)))
+    _, _, w8_bytes = chip_smoke.decode_step_bound(tg.cast_llm_bf16(w8), 1, 0, False)
+    n_lin = sum(m.q.numel() for m in w8.modules() if isinstance(m, tg.W8Linear))
+    n_scale = sum(m.scale.numel() for m in w8.modules() if isinstance(m, tg.W8Linear))
+    assert w8_bytes == n_lin + 2 * n_scale + 2 * 3 * 64 + 2 * 64   # 3 norms, 1 row
+
+
+def test_phase18_stand_in_tokenizer_stays_in_the_vocabulary():
+    tok = chip_smoke.LLMCharTokenizer(32000)
+    ids = tok.encode("情绪 happy", add_special_tokens=True)
+    assert ids[0] == 1 and all(3 <= i < 32000 for i in ids[1:])
+    text = tok.decode([1, 2, *ids[1:]])
+    assert len(text) == len(ids) - 1 and text.isalpha()   # specials skipped
+
+
+def test_phase18_runs_end_to_end_on_the_cpu_at_a_small_size(monkeypatch, capsys):
+    """The phase's orchestration on the CPU (no profile there) at a narrow
+    geometry and small mixes: every check it makes passes (cached against
+    full forward, w8 against dequantized, int8 KV, engine against generate
+    with and without the shared prefix, beams, the CLIs) and it prints a
+    rate for each of the four generate modes and the engine."""
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "CHECK_LAYERS", 2)
+    llm = dict(vocab_size=300, hidden_size=64, num_layers=3, num_heads=4, num_kv_heads=2,
+               intermediate_size=96, lora_r=2)
+    mix = {"B": 3, "lo": 40, "hi": 70, "new": (2, 12), "reps": 2}
+    engine = {"n": 5, "lo": 16, "hi": 60, "new_lo": 2, "new_hi": 6, "slots": 3,
+              "chunk": 4, "buckets": (32, 64)}
+    affect = {"video_dim": 12, "audio_dim": 10, "frames": 8, "clips": 3,
+              "qformer": dict(hidden_size=16, num_layers=1, num_heads=2,
+                              intermediate_size=32)}
+    rates = chip_smoke.phase_serving(torch, "cpu", dev="cpu", llm=llm, mix=mix,
+                                     engine=engine, affect=affect)
+    out = capsys.readouterr().out
+    assert sorted(rates) == ["bf16", "engine", "kv_int8", "w8", "w8+kv_int8"]
+    assert all(r["tok_s"] > 0 for r in rates.values())
+    assert out.count("[18 serving] a: generate") == 4
+    assert "0 of 24 differ" in out and "beams equal" in out and "texts equal" in out

@@ -181,6 +181,12 @@ def test_dataset_missing_from_registry_exits(tmp_path, monkeypatch):
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mertools_tpu")
+# the generation and serving slice's modules, walked like every other
+SERVING = tuple(f"mertools_tpu_torch.{m}" for m in (
+    "ops.quant", "mllm.generate", "mllm.beam", "mllm.serve", "mllm.chat",
+    "mllm.convert_affectgpt", "io.xlsx", "ops.ov_metrics", "cli.inference_mllm",
+    "cli.evaluation", "cli.main_ov", "cli.parity_check", "cli.translate",
+    "cli.ovlabel_extraction"))
 
 
 def test_port_never_imports_jax():
@@ -194,6 +200,8 @@ def test_port_never_imports_jax():
             "for n in names:\n"
             "    importlib.import_module(n)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+            f"missing = sorted(set({SERVING!r}) - set(names))\n"
+            "assert not missing, missing\n"
             "assert not bad, bad\n"
             "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
