@@ -13,8 +13,9 @@ heads, vocab 32000), the MERBench fusion trainer (attention fusion, hidden
 (vocab 21128, hidden 1024, 24 layers, 16 heads, 512 positions) and
 CLIP-ViT-L/14 vision features (224 px, patch 14, 257 tokens, hidden 1024,
 24 layers, projection 768), MER2023's trimodal pipeline, the face
-frontend that makes its face stores from frames, and AffectGPT generation
-and serving at TinyLlama-1.1B width — and checks them:
+frontend that makes its face stores from frames, AffectGPT generation
+and serving at TinyLlama-1.1B width, and e2e fine-tuning of HuBERT-large
+with the int8 extraction mode — and checks them:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
@@ -133,7 +134,26 @@ and serving at TinyLlama-1.1B width — and checks them:
    against CPU, and ``ovlabel_extraction --engine=continuous --w8 --bf16``
    and ``translate`` on a written HF-layout directory, through a
    character-level stand-in tokenizer. It launches none of the port's
-   kernels (counted): the JAX serving path reaches no Pallas kernel.
+   kernels (counted): the JAX serving path reaches no Pallas kernel;
+19. e2e fine-tuning and the int8 extraction mode: (a) ``main_release
+   --model=e2e_model --e2e_name=chinese-hubert-large --savemodel`` at
+   published width (24 layers, hidden 1024, 16 heads; seeded weights written
+   as ``config.json`` + ``pytorch_model.bin``) on 256 wavs of 2-6 s in two
+   tone classes, 8 x 32000 samples a clip, batch 32 (16 if 32 runs out of
+   memory, said so), 2 folds x 2 epochs: seconds a step, segments/s, peak
+   memory, the last training epoch's idle share under the profiler; the
+   losses finite and the saved backbone moved; the card against the CPU
+   from the same weights at 2 layers (a step's gradients, a trained model's
+   test logits); (b) ``extract_audio --finetuned_ckpt`` on the fold-0
+   backbone against the saved encoder, and a half-width checkpoint refused;
+   (c) ``e2e_model`` on MacBERT-large (3 layers, the stand-in tokenizer) and
+   CLIP-L/14 (2 layers, uint8 112 x 112 crops), one fold x one epoch, card
+   against CPU from the same weights; (d) HuBERT-large on the bench mix and
+   CLIP-L on phase 14's clips at fp32, bf16 and int8 (clips/s, frames/s, the
+   UTT gate int8 vs fp32 <= 3 x bf16 vs fp32), and the int8 sites' codes,
+   scales and products card against CPU at 2 layers. It launches none of
+   the port's kernels (counted): the JAX e2e encoders run without flash
+   attention and the int8 product is an XLA dot.
 
     python3 chip_smoke.py --fusion-zoo
 
@@ -141,7 +161,11 @@ runs phase 17 alone (its kernel counts included),
 
     python3 chip_smoke.py --serving
 
-runs phase 18 alone (its kernel counts included), and
+runs phase 18 alone (its kernel counts included),
+
+    python3 chip_smoke.py --e2e
+
+runs phase 19 alone (its kernel counts included), and
 
     python3 chip_smoke.py --b3-times DIR
 
@@ -1642,13 +1666,15 @@ def phase_fusion_mer2023(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
 
 
 def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2,
-                       prepare=None, floor: float = 0.0, worst: dict | None = None):
+                       prepare=None, floor: float = 0.0, worst: dict | None = None,
+                       batch_size: int = 32):
     """The card against the CPU where both start from the same weights (a
     fresh fold model, seed 0): every gradient of one training step on the
-    first batch of ``sets["train"]``, then the test1 logits and valence of
-    the model the card trained for ``epochs`` epochs (batch orders from
-    ``rng``), evaluated on both. ``prepare(model)`` runs on both copies
-    first (phase 17: dropout off, MFM's prior fixed). Returns the two
+    first batch (``batch_size`` rows) of ``sets["train"]``, then the test1
+    logits and valence of the model the card trained for ``epochs`` epochs
+    (batch orders from ``rng``), evaluated on both. ``prepare(model)`` runs
+    on both copies first (phase 17: dropout off, MFM's prior fixed; phase
+    19: dropout off, the pretrained backbone loaded). Returns the two
     max |card - cpu| / max |cpu|; a gradient's max |cpu| counts as at least
     ``floor`` of the largest over the model (phase 17: ``ZOO_GRAD_FLOOR``).
     ``worst`` (a dict) gets the gradient with the largest ratio: its name,
@@ -1659,7 +1685,7 @@ def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2,
 
     n_train, n_test = len(sets["train"]), len(sets["test1"])
     devs = {"card": resolve_device(dev, fp32=True), "cpu": torch.device("cpu")}
-    idx, mask = epoch_plan(np.arange(n_train), 32, np.random.default_rng(0))
+    idx, mask = epoch_plan(np.arange(n_train), batch_size, np.random.default_rng(0))
     sample = {k: v[idx[0]] for k, v in sets["train"].arrays().items()}
     models = {"cpu": loop.init_model(args, sample, torch.Generator().manual_seed(0))}
     models["card"] = copy.deepcopy(models["cpu"]).to(devs["card"])
@@ -1688,12 +1714,12 @@ def same_weights_check(torch, args, sets: dict, dev: str, rng, epochs: int = 2,
                      / largest, floor=floor)
     opt = loop.ClippedAdam(models["card"].parameters(), lr=1e-3)
     for _ in range(epochs):
-        plan = epoch_plan(np.arange(n_train), 32, rng)
+        plan = epoch_plan(np.arange(n_train), batch_size, rng)
         loop.train_epoch(models["card"], opt, data["card"]["train"].data,
                          *(torch.from_numpy(x).to(devs["card"]) for x in plan),
                          None, True, True)
     models["cpu"].load_state_dict(models["card"].state_dict())
-    test_plan = epoch_plan(np.arange(n_test), 32)
+    test_plan = epoch_plan(np.arange(n_test), batch_size)
     logits = {leg: [t.cpu() for t in loop.eval_epoch(
         m, data[leg]["test1"].data, *(torch.from_numpy(x).to(devs[leg]) for x in test_plan),
         True, True)[1:]] for leg, m in models.items()}
@@ -1794,10 +1820,15 @@ class CharTokenizer:
     spaces, as BertTokenizer's does, so ``find_token_span`` finds (1, -1)."""
 
     CLS, SEP, FIRST_ID, FIRST_CHAR, N_CHARS = 101, 102, 672, 0x4E00, 21128 - 672
+    pad_token_id = 0
 
     def __call__(self, text: str) -> dict:
-        return {"input_ids": [self.CLS] + [ord(c) - self.FIRST_CHAR + self.FIRST_ID
-                                           for c in text] + [self.SEP]}
+        return {"input_ids": self.encode(text)}
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> list:
+        # a CJK character keeps its place; any other wraps into the range
+        ids = [(ord(c) - self.FIRST_CHAR) % self.N_CHARS + self.FIRST_ID for c in text]
+        return [self.CLS] + ids + [self.SEP] if add_special_tokens else ids
 
     def decode(self, ids) -> str:
         names = {self.CLS: "[CLS]", self.SEP: "[SEP]"}
@@ -2856,16 +2887,18 @@ TOPN_WIDTHS = {
 
 
 @contextlib.contextmanager
-def mer2023_folds(n: int):
-    """MER2023's loader makes ``n`` folds while the block runs."""
+def mer2023_folds(n: int, loader: str = "MER2023Loader"):
+    """MER2023's loader (or ``loader``, e.g. MER2025's) makes ``n`` folds
+    while the block runs."""
     from mertools_tpu_torch.data import loaders
 
-    was = loaders.MER2023Loader.num_folder
-    loaders.MER2023Loader.num_folder = n
+    cls = getattr(loaders, loader)
+    was = cls.num_folder
+    cls.num_folder = n
     try:
         yield
     finally:
-        loaders.MER2023Loader.num_folder = was
+        cls.num_folder = was
 
 
 def quiet(fn, *args):
@@ -3431,13 +3464,14 @@ def write_hf_llm(torch, d: str, model) -> str:
 
 
 @contextlib.contextmanager
-def stand_in_tokenizer(vocab: int):
-    """``core.checkpoint.load_tokenizer`` returns :class:`LLMCharTokenizer`
-    inside the block (phase 13b's way round the missing tokenizer files)."""
+def stand_in_tokenizer(tok):
+    """``core.checkpoint.load_tokenizer`` returns ``tok`` (e.g.
+    :class:`LLMCharTokenizer`) inside the block (phase 13b's way round the
+    missing tokenizer files)."""
     from mertools_tpu_torch.core import checkpoint
 
     load = checkpoint.load_tokenizer
-    checkpoint.load_tokenizer = lambda path: LLMCharTokenizer(vocab)
+    checkpoint.load_tokenizer = lambda path: tok
     try:
         yield
     finally:
@@ -3667,7 +3701,7 @@ def phase_serving(torch, card, dev: str = "cuda", llm=SERVE_LLM, mix=SERVE_MIX,
     check(beams == beams_cpu, f"18c beams differ: {beams} vs {beams_cpu}")
 
     # (d) the CLIs
-    with tempfile.TemporaryDirectory() as d, stand_in_tokenizer(V):
+    with tempfile.TemporaryDirectory() as d, stand_in_tokenizer(LLMCharTokenizer(V)):
         qf = affect["qformer"]
         acfg = ta.AffectGPTConfig(
             llm=small.cfg, video_qformer=tq.QFormerConfig(num_queries=32, **qf),
@@ -3760,15 +3794,578 @@ def serving_phase(torch, wrappers, card) -> dict:
     return rates
 
 
+@contextlib.contextmanager
+def stores_read_once():
+    """While active, ``feature_store.read_features`` reads each (root,
+    names) from disk once and hands later calls the same arrays (no caller
+    writes to them). Phase 17's ``main_release`` runs share their stores,
+    and ``np.load`` costs ~0.5 ms a file on the card machine's host, 13-26
+    s a run; the first run of each store kind still reads them."""
+    from mertools_tpu_torch.data import feature_store
+
+    read, memo = feature_store.read_features, {}
+
+    def read_once(root, names, *args, **kw):
+        key = (root, tuple(names))
+        if key not in memo:
+            memo[key] = read(root, names, *args, **kw)
+        return memo[key]
+
+    feature_store.read_features = read_once
+    try:
+        yield memo
+    finally:
+        feature_store.read_features = read
+
+
 def zoo_phase(torch, wrappers, card) -> None:
     """Phase 17 with the kernels' counts set to 0 before it and read after
-    it: no zoo model launches B1, B2 or B3."""
+    it: no zoo model launches B1, B2 or B3. Each store is read from disk
+    once (:func:`stores_read_once`)."""
     for w in wrappers:
         w.launches = 0
-    phase_fusion_zoo(torch, card)
+    with stores_read_once():
+        phase_fusion_zoo(torch, card)
     zoo_launches = {w.__name__: w.launches for w in wrappers}
     print(f"[17 zoo] kernel launches in phase 17: {zoo_launches} [{card}]", flush=True)
     check(not any(zoo_launches.values()), f"phase 17 launched {zoo_launches}")
+
+
+# ------------------------------------------------ e2e fine-tuning (phase 19)
+# (a): HuBERT-large at published width; the folds and epochs are cuts of
+# MER2023's 5 x 100, the clip count is the phase's own
+E2E_AUDIO = {"clips": 256, "lo_s": 2.0, "hi_s": 6.0, "nseg": 8, "seglen": 32000,
+             "batch": 32, "fallback_batch": 16, "folds": 2, "epochs": 2}
+# the card-vs-CPU legs: depth cut to these layers, rows to these counts
+E2E_CHECK = {"audio_layers": 2, "text_layers": 3, "vision_layers": 2, "clips": 8,
+             "nseg": 2, "batch": 4}
+# (c): one fold x one epoch of MacBERT-large (3 layers) and CLIP-L (2 layers)
+E2E_TEXT_VISION = {"text_clips": 64, "video_clips": 24, "batch": 8}
+E2E_TOL = 1e-4        # card vs CPU: each gradient (ZOO_GRAD_FLOOR), logits
+FINETUNED_TOL = 1e-5  # extract_audio --finetuned_ckpt vs the saved encoder, UTT
+INT8_RATIO = 3.0      # int8 vs fp32 at most this times bf16 vs fp32, on UTT
+
+
+def e2e_step_flop(cfg, segments: int, seg_len: int) -> float:
+    """Operations of one e2e training step on a wav2vec2-family backbone,
+    counted from the shapes: the conv frontend, the feature projection, the
+    positional conv and the transformer layers (their products, attention
+    scores and weighted values) forward for ``segments`` windows of
+    ``seg_len`` samples, times 3 for the backward. The head is left out
+    (under 0.01%)."""
+    flop, L, c_in = 0.0, seg_len, 1
+    for dim, k, s in zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
+        L = (L - k) // s + 1
+        flop += 2.0 * L * dim * c_in * k
+        c_in = dim
+    T, H, F = L, cfg.hidden_size, cfg.intermediate_size
+    flop += 2.0 * T * c_in * H
+    flop += 2.0 * T * H * (H // cfg.num_conv_pos_embedding_groups) * cfg.num_conv_pos_embeddings
+    flop += cfg.num_hidden_layers * (2.0 * T * (4 * H * H + 2 * H * F) + 4.0 * T * T * H)
+    return 3.0 * segments * flop
+
+
+def tone_corpus(rng, n: int, lo_s: float, hi_s: float) -> tuple[dict, dict]:
+    """``n`` seeded clips of ``lo_s``-``hi_s`` s in two tone classes, the
+    corpus of tests/test_e2e_model.py (200 Hz "neutral", 500 Hz "angry",
+    amplitude 0.4) with a random phase and a little noise: (name -> PCM16
+    wav, name -> label)."""
+    from mertools_tpu_torch.core.globals_mer import EMOS_MER
+
+    wavs, corpus = {}, {}
+    for i, secs in enumerate(rng.uniform(lo_s, hi_s, n)):
+        e = i % 2
+        t = np.arange(int(secs * SR)) / SR
+        w = (0.4 * np.sin(2 * np.pi * (200.0, 500.0)[e] * t + rng.uniform(0, 2 * np.pi))
+             + 0.02 * rng.normal(size=len(t)))
+        name = f"tone{i:03d}"
+        wavs[name] = np.clip(np.round(w * 32767.0), -32768, 32767).astype(np.int16)
+        corpus[name] = {"emo": EMOS_MER[e], "val": 0.0}
+    return wavs, corpus
+
+
+def write_seeded_checkpoint(root: str, name: str, cfg, sd: dict) -> str:
+    """``{root}/{name}``: ``cfg``'s ``config.json`` and the seeded weights
+    ``sd`` as ``pytorch_model.bin``, the layout ``--pretrain_dir`` names
+    and ``--savemodel`` writes."""
+    from mertools_tpu_torch.core.checkpoint import write_hf_checkpoint
+
+    return write_hf_checkpoint(os.path.join(root, name), cfg.to_config_json(), sd)
+
+
+def int8_gate(d: dict, label: str) -> float:
+    """Phase 19d's gate on UTT (the worst clip's max|a - b| / max|b|): int8
+    against fp32 at most ``INT8_RATIO`` times bf16 against fp32. Returns
+    the ratio."""
+    check(d["int8"] <= INT8_RATIO * d["bf16"],
+          f"{label} UTT int8 vs fp32 {d['int8']:.3e} > {INT8_RATIO} x bf16 vs "
+          f"fp32 {d['bf16']:.3e}")
+    return d["int8"] / d["bf16"]
+
+
+class TrainProbe:
+    """While active, ``loop.train_epoch`` runs as it does, but each call is
+    timed with the device drained before and after, its batches counted and
+    its losses kept, and the ``n``-th call runs under
+    :func:`device_profile` on a card (``prof``)."""
+
+    def __init__(self, torch, n: int):
+        self.torch, self.n, self.prof = torch, n, None
+        self.secs, self.steps, self.losses = [], [], []
+
+    def __enter__(self):
+        from mertools_tpu_torch.train import loop
+
+        self.loop, self.orig = loop, loop.train_epoch
+
+        def train_epoch(model, opt, data, idx, *args):
+            cuda = idx.is_cuda
+            sync = self.torch.cuda.synchronize if cuda else (lambda: None)
+            out = []
+            sync()
+            t0 = time.perf_counter()
+            if cuda and len(self.secs) + 1 == self.n:
+                self.prof = device_profile(self.torch, lambda: out.append(
+                    self.orig(model, opt, data, idx, *args)))
+            else:
+                out.append(self.orig(model, opt, data, idx, *args))
+                sync()
+            self.secs.append(time.perf_counter() - t0)
+            self.steps.append(int(idx.shape[0]))
+            self.losses.append(out[0][0].cpu().numpy())
+            return out[0]
+
+        loop.train_epoch = train_epoch
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.train_epoch = self.orig
+
+
+def e2e_check(torch, args, sets: dict, backbone_sd: dict, dev: str, batch: int) -> dict:
+    """:func:`same_weights_check` for an e2e model: every dropout off and
+    ``backbone_sd`` loaded into both copies; each gradient at the
+    ``ZOO_GRAD_FLOOR``. Returns (gradient, logits) ratios and the worst
+    gradient."""
+    from mertools_tpu_torch.models.modules import Dropout
+
+    def prepare(m):
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.p = 0.0
+        m.backbone.load_state_dict(backbone_sd)
+
+    worst = {}
+    d_grad, d_eval = same_weights_check(torch, args, sets, dev, np.random.default_rng(0),
+                                        epochs=1, prepare=prepare, floor=ZOO_GRAD_FLOOR,
+                                        worst=worst, batch_size=batch)
+    return dict(grad=d_grad, eval=d_eval, worst=worst)
+
+
+def check_line(r: dict) -> str:
+    w = r["worst"]
+    return (f"a step's gradients {r['grad']:.3e} (worst {w['tensor']}, its max "
+            f"{w['share']:.1e} of the largest, floor {ZOO_GRAD_FLOOR}), a trained "
+            f"model's test logits and valence {r['eval']:.3e} (limit {E2E_TOL})")
+
+
+def e2e_args(**kw):
+    from mertools_tpu_torch.core.config import Args
+
+    return Args(model="e2e_model", hidden_dim=256, dropout=0.0, lr=1e-3, l2=1e-5,
+                grad_clip=-1.0, output_dim1=6, output_dim2=1, metric_name="emoval",
+                feat_type="utt", **kw)
+
+
+def phase_e2e_audio(torch, card, d: str, dev: str, cfg, sizes: dict) -> dict:
+    """19a: ``main_release --model=e2e_model`` on HuBERT-large (``cfg``)
+    from a seeded checkpoint under ``{d}/pretrain``, ``--savemodel``; then
+    the card against the CPU from the same weights at 2 layers. Returns
+    what 19b and 19d reuse."""
+    from mertools_tpu_torch.cli import main_release
+    from mertools_tpu_torch.data import labels
+    from mertools_tpu_torch.data.e2e_dataset import E2EDataset
+    from mertools_tpu_torch.encoders import wav2vec2 as tw
+
+    name = "chinese-hubert-large"
+    t0 = time.perf_counter()
+    sd = tw.init_params(cfg, torch.Generator().manual_seed(19))
+    pretrain = os.path.join(d, "pretrain")
+    write_seeded_checkpoint(pretrain, name, cfg, sd)
+    t_init = time.perf_counter() - t0
+    wavs, corpus = tone_corpus(np.random.default_rng(19), sizes["clips"], sizes["lo_s"],
+                               sizes["hi_s"])
+    audio = os.path.join(d, "audio")
+    write_wavs(audio, wavs)
+    labels.write_label_archive(os.path.join(d, "label.npz"), {"train": corpus})
+    n_calls = sizes["folds"] * sizes["epochs"]
+    peak, cut, secs = None, None, None
+    for batch in (sizes["batch"], sizes["fallback_batch"]):
+        save = os.path.join(d, f"saved_b{batch}")
+        flags = ["--dataset=MER2025", "--model=e2e_model", f"--e2e_name={name}",
+                 f"--e2e_nseg={sizes['nseg']}", f"--e2e_seglen={sizes['seglen']}",
+                 f"--batch_size={batch}", "--savemodel", f"--pretrain_dir={pretrain}",
+                 f"--raw_audio_root={audio}", f"--features_root={d}",
+                 f"--label_path={os.path.join(d, 'label.npz')}", f"--save_root={save}",
+                 f"--epochs={sizes['epochs']}", "--seed=0", "--hidden_dim=256",
+                 "--dropout=0.3", "--lr=1e-5", "--device", dev]
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            with mer2023_folds(sizes["folds"], "MER2025Loader"), \
+                    TrainProbe(torch, n_calls) as probe:
+                res, _ = quiet(main_release.main, flags)
+            secs = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError as exc:
+            cut = f"batch {batch} ran out of device memory ({str(exc)[:160]})"
+            print(f"[19 e2e] a: {cut}; running batch {sizes['fallback_batch']} "
+                  f"[{card}]", flush=True)
+            continue
+        if dev == "cuda":
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        break
+    else:
+        raise RuntimeError("19a: no batch size fit")
+    seg_per_batch = batch * sizes["nseg"]
+    calls = list(zip(probe.secs, probe.steps))
+    # the first epoch warms cuBLAS and cuDNN; the last one ran under the profiler
+    steady = [c for i, c in enumerate(calls) if 0 < i < probe.n - 1] or calls
+    step_s = sum(s for s, _ in steady) / sum(n for _, n in steady)
+    flop = e2e_step_flop(cfg, seg_per_batch, sizes["seglen"])
+    prof = ""
+    if probe.prof is not None:
+        wall, *p = probe.prof
+        prof = (f"; the last training epoch ({probe.steps[-1]} steps) under the "
+                f"profiler: wall {wall:.1f} ms, {profile_line(*p, wall)}")
+    print(f"[19 e2e] a: main_release MER2025 e2e_model {name} (hidden "
+          f"{cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads; seeded weights, written and read as "
+          f"config.json + pytorch_model.bin, {t_init:.1f} s) on {sizes['clips']} "
+          f"tone clips of {sizes['lo_s']:g}-{sizes['hi_s']:g} s, {sizes['nseg']} x "
+          f"{sizes['seglen']} samples a clip, batch {batch} ({seg_per_batch} segments "
+          f"a step), {sizes['folds']} folds x {sizes['epochs']} epochs, --savemodel: "
+          f"{secs:.1f} s; {step_s:.3f} s a training step, "
+          f"{seg_per_batch / step_s:.1f} segments/s, {flop / 1e12:.2f} TFLOP a step "
+          f"(counted from the shapes) at {flop / step_s / 1e12:.1f} TFLOP/s, "
+          f"{flop / step_s / PEAK['fp32']:.3f} of the fp32 peak (steady epochs, "
+          f"{sum(probe.steps)} steps in all; training epochs took "
+          f"{', '.join(f'{s:.2f}' for s in probe.secs)} s); peak device memory "
+          f"{peak if peak is None else round(peak, 2)} GiB; cv "
+          f"{res.cv_str}{prof} [{card}]", flush=True)
+    if cut:
+        print(f"[19 e2e] a: CUT: {cut}; the run above is at batch {batch} [{card}]",
+              flush=True)
+    losses = np.concatenate([x.reshape(-1) for x in probe.losses])
+    check(bool(np.isfinite(losses).all()) and all(
+        np.isfinite(f["eval_loss"]) for f in res.folds), "19a non-finite loss")
+    folds = sorted(os.listdir(os.path.join(save, "model")))
+    check(folds == [f"fold{i}_backbone" for i in range(sizes["folds"])],
+          f"19a saved {folds}")
+    fold0 = os.path.join(save, "model", "fold0_backbone")
+    saved = torch.load(os.path.join(fold0, "pytorch_model.bin"), weights_only=True)
+    moved = max(float((saved[k] - v).abs().max()) for k, v in sd.items())
+    check(sorted(saved) == sorted(sd) and moved > 0,
+          f"19a saved backbone moved {moved} from the initial one")
+
+    # card vs CPU from the same weights, at 2 layers of the published width
+    L = E2E_CHECK["audio_layers"]
+    small = dataclasses.replace(cfg, num_hidden_layers=L)
+    small_sd = layer_prefix_sd(sd, "encoder.layers.", L)
+    pre2 = os.path.join(d, "pretrain_check")
+    write_seeded_checkpoint(pre2, name, small, small_sd)
+    names = sorted(wavs)[: 2 * E2E_CHECK["clips"]]
+    emos = np.arange(len(names)) % 2
+    sets = {s: E2EDataset.build_audio(part, emos[: len(part)], np.zeros(len(part)), audio,
+                                      n_seg=E2E_CHECK["nseg"], seg_len=sizes["seglen"])
+            for s, part in (("train", names[::2]), ("test1", names[1::2]))}
+    t0 = time.perf_counter()
+    r = e2e_check(torch, e2e_args(e2e_name=name, pretrain_dir=pre2), sets, small_sd, dev,
+                  E2E_CHECK["batch"])
+    print(f"[19 e2e] a: card vs CPU from the same weights ({L} layers at full width, "
+          f"{E2E_CHECK['batch']} clips x {E2E_CHECK['nseg']} segments a batch, dropout "
+          f"off): {check_line(r)} ({time.perf_counter() - t0:.1f} s) [{card}]",
+          flush=True)
+    check(r["grad"] <= E2E_TOL and r["eval"] <= E2E_TOL, f"19a card vs CPU {r}")
+    return dict(sd=sd, pretrain=pretrain, fold0=fold0, saved=saved, wavs=wavs)
+
+
+def phase_e2e_readback(torch, card, d: str, dev: str, cfg, a: dict) -> None:
+    """19b: ``extract_audio --finetuned_ckpt`` on 19a's fold-0 backbone,
+    against the fine-tuned encoder as the trainer saved it; a checkpoint of
+    the wrong width is refused."""
+    from mertools_tpu_torch.cli import extract_audio
+    from mertools_tpu_torch.encoders.wav2vec2 import load_hf_state_dict
+    from mertools_tpu_torch.features import audio as ta
+
+    names = sorted(a["wavs"])[:8]
+    audio8 = os.path.join(d, "audio8")
+    write_wavs(audio8, {n: a["wavs"][n] for n in names})
+    argv = ["--model_name", "chinese-hubert-large", "--pretrain_dir", a["pretrain"],
+            "--audio_dir", audio8, "--feature_level", "UTTERANCE", "--device", dev]
+    t0 = time.perf_counter()
+    quiet(extract_audio.main, argv + ["--save_dir", os.path.join(d, "ft"),
+                                      "--finetuned_ckpt", a["fold0"]])
+    t_cli = time.perf_counter() - t0
+    got = {n: np.load(os.path.join(d, "ft", "chinese-hubert-large-UTT", f"{n}.npy"))
+           for n in names}
+    wavs = {n: a["wavs"][n].astype(np.float32) / 32768.0 for n in names}
+    budget = 80 * SR      # the CLI's --batch_budget_sec default, so the batches match
+    want = ta.AudioExtractor(cfg, load_hf_state_dict(a["saved"]), sample_budget=budget,
+                             device=dev).extract(wavs, level="UTT")
+    base = ta.AudioExtractor(cfg, a["sd"], sample_budget=budget, device=dev).extract(
+        wavs, level="UTT")
+    d_ft, d_base = rel_diff(got, want), rel_diff(base, want)
+    bad_dir = os.path.join(d, "narrow")
+    write_seeded_checkpoint(bad_dir, "", cfg, {
+        k: (v[..., : v.shape[-1] // 2] if v.shape[-1] == cfg.hidden_size else v)
+        for k, v in a["saved"].items()})
+    try:
+        quiet(extract_audio.main, argv + ["--save_dir", os.path.join(d, "bad"),
+                                          "--finetuned_ckpt", bad_dir])
+        refused = "not refused"
+    except ValueError as exc:
+        refused = str(exc)
+    print(f"[19 e2e] b: extract_audio chinese-hubert-large --finetuned_ckpt "
+          f"fold0_backbone on {len(names)} wavs ({t_cli:.1f} s with loading): UTT vs "
+          f"the saved fine-tuned encoder {d_ft:.3e} (limit {FINETUNED_TOL}); the "
+          f"pretrained encoder lies {d_base:.3e} from it; a half-width checkpoint: "
+          f"{refused!r} [{card}]", flush=True)
+    check(d_ft <= FINETUNED_TOL, f"19b finetuned vs saved {d_ft}")
+    check(d_base > FINETUNED_TOL, f"19b the fine-tuned encoder equals the pretrained {d_base}")
+    check("leaf shapes do not match the selected model architecture" in refused,
+          f"19b half-width checkpoint: {refused}")
+
+
+def phase_e2e_text_vision(torch, card, d: str, dev: str, tcfg, vcfg, sizes: dict) -> None:
+    """19c: ``e2e_model`` on chinese-macbert-large (``tcfg``, through the
+    stand-in tokenizer) and clip-vit-large-patch14 (``vcfg``, uint8 face
+    crops resized on the device), one fold x one epoch of ``run_cv`` each
+    from a seeded checkpoint, then the card against the CPU from the same
+    weights."""
+    from mertools_tpu_torch.core.config import Args
+    from mertools_tpu_torch.data import loaders
+    from mertools_tpu_torch.data.cv import kfold_indices
+    from mertools_tpu_torch.data.e2e_dataset import E2EDataset
+    from mertools_tpu_torch.encoders import bert as tb
+    from mertools_tpu_torch.encoders import vit_clip as tc
+    from mertools_tpu_torch.train import loop
+
+    rng = np.random.default_rng(191)
+    pretrain = os.path.join(d, "pretrain_tv")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    tsd = {k: v.cpu() for k, v in tb.init_params(tcfg, gen).items()}
+    vsd = {k: v.cpu() for k, v in tc.init_params(vcfg, gen).items()}
+    write_seeded_checkpoint(pretrain, "chinese-macbert-large", tcfg, tsd)
+    write_seeded_checkpoint(pretrain, "clip-vit-large-patch14", vcfg, vsd)
+    n_t, n_v = sizes["text_clips"], sizes["video_clips"]
+    csv_path = os.path.join(d, "trans.csv")
+    with open(csv_path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["name", "chinese"])
+        for i in range(n_t):
+            w.writerow([f"t{i:03d}", "" if i == 0 else CharTokenizer.sentence(
+                rng, int(rng.integers(8, 97)))])
+    faces = os.path.join(d, "faces")
+    os.makedirs(faces)
+    for i, clip in enumerate(face_clips(rng, n_v).values()):
+        np.save(os.path.join(faces, f"v{i:03d}.npy"), clip)
+    for modality, name, n, extra, sd in (
+            ("text", "chinese-macbert-large", n_t, dict(trans_csv=csv_path), tsd),
+            ("video", "clip-vit-large-patch14", n_v, dict(face_npy_root=faces), vsd)):
+        names = [f"{modality[0]}{i:03d}" for i in range(n)]
+        emos = np.arange(n) % 6
+        args = Args(model="e2e_model", e2e_name=name, pretrain_dir=pretrain,
+                    hidden_dim=256, dropout=0.3, lr=1e-5, l2=1e-5, grad_clip=-1.0,
+                    batch_size=sizes["batch"], epochs=1, output_dim1=6,
+                    output_dim2=0, metric_name="emo", **extra)
+        with stand_in_tokenizer(CharTokenizer()):
+            ds = loaders.MER2025Loader(args)._build(names, emos, np.zeros(n))
+        fold = kfold_indices(n, 5, np.random.default_rng(0))[:1]
+        t0 = time.perf_counter()
+        res = quiet(loop.run_cv, args, ds, None, 0, True, fold, None, dev)[0]
+        secs = time.perf_counter() - t0
+        data = {k: v.shape for k, v in ds.arrays().items()}
+        half = n // 2
+        check_sets = {s: E2EDataset(ds.names[sl], ds.emos[sl], ds.vals[sl],
+                                            ds.modality, {k: v[sl] for k, v in ds.data.items()})
+                      for s, sl in (("train", slice(0, min(half, E2E_CHECK["clips"]))),
+                                    ("test1", slice(half, half + E2E_CHECK["clips"] // 2)))}
+        t0 = time.perf_counter()
+        r = e2e_check(torch, e2e_args(e2e_name=name, pretrain_dir=pretrain, **extra),
+                      check_sets, sd, dev, 2 if modality == "video" else E2E_CHECK["batch"])
+        layers = (tcfg if modality == "text" else vcfg).num_hidden_layers
+        print(f"[19 e2e] c: {name} ({layers} layers at full width) e2e_model, one fold x "
+              f"one epoch of run_cv on {n} clips ({data}): {secs:.1f} s, eval "
+              f"{res.cv_str}; card vs CPU from the same weights: {check_line(r)} "
+              f"({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+        check(bool(np.isfinite(res.folds[0]["eval_loss"])), f"19c {name} loss")
+        check(r["grad"] <= E2E_TOL and r["eval"] <= E2E_TOL, f"19c {name} card vs CPU {r}")
+
+
+def int8_sites_equal(torch, enc_cls, cfg, sd: dict, x, dev: str) -> tuple[int, int]:
+    """The int8 mode on the card against the CPU: a ``cfg`` encoder in bf16
+    with :func:`int8_dot_general` recording each Dense site's operands and
+    product on ``dev``; then, from the same operands, each site's
+    activation and weight codes and scales on the CPU (bit-equal), the
+    card's int32 sums against the exact int64 product of the codes
+    (equal), and the card's product against the CPU's rescale of those
+    exact sums within one unit in the last place of the output dtype (the
+    card divides by a host scalar as a product with its reciprocal, which
+    can move the last bit). Returns (sites, sites where the CPU's own
+    ``torch._int_mm`` differs from the exact sums, products that differ
+    from the CPU's rescale, products), the second printed, not gated: it is
+    the host's GEMM, not the card's."""
+    from mertools_tpu_torch.ops import quant
+
+    sites, cpu_off, n_off, n_all = [], 0, 0, 0
+
+    def recording(lhs, rhs):
+        out = quant.int8_dot_general(lhs, rhs)
+        sites.append((lhs.detach(), rhs.detach(), out.detach()))
+        return out
+
+    with torch.device("meta"):
+        enc = enc_cls(cfg, dot_general=recording)
+    enc.load_state_dict(sd, assign=True)
+    with torch.inference_mode():
+        enc.to(dev, torch.bfloat16).eval()(x.to(dev, torch.bfloat16))
+    for i, (lhs, rhs, out) in enumerate(sites):
+        codes = []
+        for t, dim in ((lhs, -1), (rhs, 0)):
+            q_dev, s_dev = quant.quantize_int8(t, dim)
+            q_cpu, s_cpu = quant.quantize_int8(t.cpu(), dim)
+            check(torch.equal(q_dev.cpu(), q_cpu) and torch.equal(s_dev.cpu(), s_cpu),
+                  f"19d int8 site {i}: codes or scales differ from the CPU's")
+            codes.append((q_dev, q_cpu, s_cpu))
+        (ql, ql_cpu, ls), (qr, qr_cpu, rs) = codes
+        ql_cpu = ql_cpu.reshape(-1, ql_cpu.shape[-1])
+        # exact in float64: every partial sum is an integer below 127^2 K < 2^53
+        exact = (ql_cpu.double() @ qr_cpu.double()).long()
+        acc = quant.int_mm(ql.reshape(-1, ql.shape[-1]), qr).cpu().long()
+        check(torch.equal(acc, exact), f"19d int8 site {i}: the card's int32 sums differ "
+              f"from the exact product by {int((acc - exact).abs().max())}")
+        cpu_off += not torch.equal(quant.int_mm(ql_cpu, qr_cpu).long(), exact)
+        want = (exact.int().reshape(*ql.shape[:-1], -1).float() * (ls / 127.0)
+                * (rs / 127.0)).to(out.dtype)
+        got, want = out.cpu().float(), want.float()
+        _, e = torch.frexp(want)      # |want| in [2^(e-1), 2^e): its ulp is eps 2^(e-1)
+        ulp = torch.ldexp(torch.full_like(want, torch.finfo(out.dtype).eps), e - 1)
+        gap = (got - want).abs()
+        check(bool((gap <= ulp).all()), f"19d int8 site {i}: the product differs from "
+              f"the CPU's rescale of the exact sums by {float((gap / ulp).max()):.2f} ulp")
+        n_off += int((gap > 0).sum())
+        n_all += gap.numel()
+    return len(sites), cpu_off, n_off, n_all
+
+
+def phase_int8(torch, card, dev: str, acfg, asd: dict, vcfg, vsd: dict,
+               n_audio: int = 64, n_video: int = 32) -> None:
+    """19d: HuBERT-large on the bench mix and CLIP-L on phase 14's clips at
+    ``compute_dtype`` fp32, bf16 and int8: rates, UTT errors against fp32
+    and the gate; then the int8 sites, card against CPU, at 2 layers."""
+    from mertools_tpu_torch.encoders import vit_clip as tc
+    from mertools_tpu_torch.encoders import wav2vec2 as tw
+    from mertools_tpu_torch.features import audio as ta
+    from mertools_tpu_torch.features import vision as tvis
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    lengths, _, wavs = bench_clips()
+    wavs = dict(list(wavs.items())[:n_audio])
+    audio_s = float(sum(len(w) for w in wavs.values())) / SR
+    clips = dict(list(face_clips(np.random.default_rng(14), 32).items())[:n_video])
+    n_frames = sum(min(len(c), 64) for c in clips.values())
+    buckets, budget = (64000, 112000, ta.MAX_SEGMENT), 16 * ta.MAX_SEGMENT
+    for label, make, data, warm, unit, n_unit in (
+            ("HuBERT-large", lambda m: ta.AudioExtractor(
+                acfg, asd, buckets=buckets, sample_budget=budget, compute_dtype=m,
+                device=dev), wavs, {f"w{i}": np.zeros(b, np.float32)
+                                    for i, b in enumerate(buckets)}, "clips", len(wavs)),
+            ("CLIP-L/14", lambda m: tvis.VisionExtractor(
+                vcfg, vsd, batch_size=64, max_frames=64, compute_dtype=m, device=dev),
+             clips, dict(list(clips.items())[:1]), "frames", n_frames)):
+        outs, rates = {}, {}
+        for mode in ("fp32", "bf16", "int8"):
+            ex = make(None if mode == "fp32" else mode)
+            ex.extract(warm, level="UTT")
+            sync()
+            t0 = time.perf_counter()
+            outs[mode] = ex.extract(data, level="UTT")
+            sync()
+            rates[mode] = n_unit / (time.perf_counter() - t0)
+            del ex
+        d = {m: rel_diff(outs[m], outs["fp32"]) for m in ("bf16", "int8")}
+        ratio = int8_gate(d, f"19d {label}")
+        extra = f" ({audio_s:.1f} s of audio)" if unit == "clips" else f" ({len(clips)} clips)"
+        print(f"[19 e2e] d: {label} UTT {unit}/s{extra}: "
+              f"{', '.join(f'{m} {r:.1f}' for m, r in rates.items())}; vs fp32, worst "
+              f"clip's max|a - b| / max|b|: bf16 {d['bf16']:.3e}, int8 {d['int8']:.3e} "
+              f"(int8 / bf16 = {ratio:.2f}, limit {INT8_RATIO}) [{card}]", flush=True)
+    L = E2E_CHECK["audio_layers"]
+    n_a, off_a, diff_a, all_a = int8_sites_equal(torch, tw.Wav2Vec2Encoder,
+                           dataclasses.replace(acfg, num_hidden_layers=L),
+                           layer_prefix_sd(asd, "encoder.layers.", L),
+                           torch.from_numpy(ta.normalize_wav(next(iter(wavs.values())))[None]),
+                           dev)
+    from mertools_tpu_torch.features.vision import preprocess_faces_device
+
+    pix = preprocess_faces_device(torch.from_numpy(next(iter(clips.values()))[:8]),
+                                  vcfg.image_size)
+    n_v, off_v, diff_v, all_v = int8_sites_equal(
+        torch, tc.CLIPVisionEncoder, dataclasses.replace(vcfg, num_hidden_layers=L),
+        layer_prefix_sd(vsd, "encoder.layers.", L), pix, dev)
+    print(f"[19 e2e] d: int8 at {L} layers from the same operands: activation and "
+          f"weight codes and scales card vs CPU bit-equal, the card's int32 sums equal "
+          f"to the exact product, its bf16 products within 1 ulp of the CPU's rescale "
+          f"of them ({diff_a} of {all_a} HuBERT and {diff_v} of {all_v} CLIP elements "
+          f"differ), at all {n_a} HuBERT and {n_v} CLIP sites; the CPU's own "
+          f"torch._int_mm differs from the exact sums at {off_a} + {off_v} of them "
+          f"[{card}]", flush=True)
+
+
+def phase_e2e(torch, card, dev: str = "cuda", acfg=None, tcfg=None, vcfg=None,
+              audio=E2E_AUDIO, text_vision=E2E_TEXT_VISION, int8_sizes=(64, 32)) -> None:
+    """Phase 19: e2e fine-tuning (a-c) and the int8 extraction mode (d), at
+    HuBERT-large, MacBERT-large (3 layers) and CLIP-L/14 (2 layers) widths
+    unless the configs say otherwise."""
+    from mertools_tpu_torch.encoders.bert import BertConfig
+    from mertools_tpu_torch.encoders.vit_clip import CLIPVisionConfig
+    from mertools_tpu_torch.encoders.wav2vec2 import Wav2Vec2Config
+    from mertools_tpu_torch.encoders import vit_clip as tc
+
+    acfg = acfg or Wav2Vec2Config.large()
+    tcfg = tcfg or dataclasses.replace(BertConfig.large(),
+                                       num_hidden_layers=E2E_CHECK["text_layers"])
+    vfull = vcfg or CLIPVisionConfig()
+    marks = [time.perf_counter()]
+    with tempfile.TemporaryDirectory() as d:
+        a = phase_e2e_audio(torch, card, d, dev, acfg, audio)
+        marks.append(time.perf_counter())
+        phase_e2e_readback(torch, card, d, dev, acfg, a)
+        marks.append(time.perf_counter())
+        phase_e2e_text_vision(torch, card, d, dev, tcfg, dataclasses.replace(
+            vfull, num_hidden_layers=E2E_CHECK["vision_layers"]), text_vision)
+        marks.append(time.perf_counter())
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    vsd = tc.init_params(vfull, torch.Generator(device=dev).manual_seed(0))
+    phase_int8(torch, card, dev, acfg, a["sd"], vfull, vsd, *int8_sizes)
+    marks.append(time.perf_counter())
+    parts = ", ".join(f"{p} {b - a_:.1f} s" for p, a_, b in zip("abcd", marks, marks[1:]))
+    print(f"[19 e2e] phase 19 took {marks[-1] - marks[0]:.1f} s ({parts}) [{card}]",
+          flush=True)
+
+
+def e2e_phase(torch, wrappers, card) -> None:
+    """Phase 19 with the kernels' counts set to 0 before it and read after
+    it: the JAX e2e path builds its encoders without flash attention and
+    the int8 product is an XLA dot, so no kernel of the port runs."""
+    for w in wrappers:
+        w.launches = 0
+    phase_e2e(torch, card)
+    counts = no_launches(wrappers, "phase 19")
+    print(f"[19 e2e] kernel launches in phase 19: {counts} [{card}]", flush=True)
 
 
 def b3_times_of(torch, root: str) -> int:
@@ -3815,7 +4412,8 @@ def main(argv: list[str]) -> int:
         return b3_times_of(torch, argv[1])
     zoo_only = argv == ["--fusion-zoo"]
     serving_only = argv == ["--serving"]
-    if argv and not (zoo_only or serving_only):
+    e2e_only = argv == ["--e2e"]
+    if argv and not (zoo_only or serving_only or e2e_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(HERE, "mertools_tpu_torch")):
@@ -3843,10 +4441,11 @@ def main(argv: list[str]) -> int:
     print(f"[1 device] {kind}; nvidia-smi: {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     wrappers = [fa.flash_attention, mf.mel_power] + [getattr(fc, n) for n in B3_WRAPPERS]
-    if zoo_only or serving_only:
+    if zoo_only or serving_only or e2e_only:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        (zoo_phase if zoo_only else serving_phase)(torch, wrappers, card)
+        (zoo_phase if zoo_only else serving_phase if serving_only else e2e_phase)(
+            torch, wrappers, card)
         return 0
     path, secs, log = _kernels.build()
     usage = check_no_spills(log)
@@ -3915,6 +4514,8 @@ def main(argv: list[str]) -> int:
     zoo_phase(torch, wrappers, card)
     torch.cuda.empty_cache()
     serving_phase(torch, wrappers, card)
+    torch.cuda.empty_cache()
+    e2e_phase(torch, wrappers, card)
 
     b, m = kres["bf16"], mres
     kernels = [{

@@ -12,7 +12,12 @@ pipeline on ``--device`` (default ``cuda``, card index ``--gpu``). Output
 layout matches the reference:
 ``{save_dir}/{model_name}-{UTT|FRA}/{clip}.npy``. The wav2vec2 / HuBERT /
 data2vec / WavLM family and Whisper are ported; the other encoders exit with
-the ROADMAP item that ports them.
+the ROADMAP item that ports them. For the wav2vec2 family,
+``--finetuned_ckpt DIR`` replaces the loaded weights with a fine-tuned
+backbone (``main_release --model=e2e_model --savemodel`` writes
+``model/fold{i}_backbone``), held to the selected architecture's keys and
+shapes, and ``--compute_dtype int8`` runs the transformer layers' products
+as dynamic w8a8 (``ops/quant.int8_dot_general``).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from ..core.checkpoint import read_hf_config, read_hf_weights
+from ..core.checkpoint import read_finetuned, read_hf_config, read_hf_weights
 
 # model-name fragment -> the ROADMAP item that ports its extractor
 _NOT_PORTED = (
@@ -109,8 +114,9 @@ def main(argv=None):
                    choices=["tiny", "base", "large"])
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=[None, "bf16", "int8"],
-                   help="bf16: params and activations in bfloat16; int8 is not "
-                        "ported yet; default fp32 (TF32 off) for parity")
+                   help="bf16: params and activations in bfloat16; int8: bf16 "
+                        "with w8a8 products in the transformer layers; default "
+                        "fp32 (TF32 off) for parity")
     p.add_argument("--transfer_dtype", type=str, default="f32",
                    choices=["f32", "int16"],
                    help="int16: ship PCM16 to the device (half the bytes; "
@@ -122,7 +128,8 @@ def main(argv=None):
     p.add_argument("--profile", type=str, default=None,
                    help="write a torch.profiler Chrome trace to this dir")
     p.add_argument("--finetuned_ckpt", type=str, default=None,
-                   help="orbax dir of a fine-tuned backbone (not ported yet)")
+                   help="checkpoint dir of a fine-tuned backbone "
+                        "(main_release --savemodel's model/fold{i}_backbone)")
     args = p.parse_args(argv)
 
     item = _not_ported(args.model_name.lower())
@@ -130,9 +137,10 @@ def main(argv=None):
         raise SystemExit(f"{args.model_name}: this extractor is not ported to "
                          f"mertools_tpu_torch yet (ROADMAP {item}); use "
                          f"python -m mertools_tpu.cli.extract_audio")
-    if args.finetuned_ckpt:
-        raise SystemExit("--finetuned_ckpt restores an orbax checkpoint of the "
-                         "JAX trainer, which is not ported yet (ROADMAP A17)")
+    whisper = "whisper" in args.model_name.lower()
+    if whisper and args.finetuned_ckpt:
+        raise SystemExit("--finetuned_ckpt reads a fine-tuned wav2vec2-family "
+                         "backbone; e2e_model fine-tunes no Whisper encoder")
     resolve_dataset_args(args, audio_dir="audio", save_dir="features")
 
     level = "UTT" if args.feature_level == "UTTERANCE" else "FRA"
@@ -140,7 +148,7 @@ def main(argv=None):
     os.makedirs(out_dir, exist_ok=True)
 
     device = f"cuda:{args.gpu}" if args.device == "cuda" else "cpu"
-    if "whisper" in args.model_name.lower():
+    if whisper:
         if args.compute_dtype is not None:
             print(f"--compute_dtype {args.compute_dtype} is ignored: the "
                   f"Whisper extractor runs in fp32, as the JAX package's does")
@@ -152,6 +160,10 @@ def main(argv=None):
     else:
         cfg, params = load_encoder(args.model_name, args.pretrain_dir,
                                    args.random_init, args.encoder_size)
+        if args.finetuned_ckpt:
+            from ..encoders.wav2vec2 import load_hf_state_dict
+
+            params = read_finetuned(args.finetuned_ckpt, params, load_hf_state_dict)
         ex = AudioExtractor(cfg, params,
                             sample_budget=args.batch_budget_sec * 16000,
                             compute_dtype=args.compute_dtype,

@@ -13,6 +13,9 @@ the reference: ``name`` + ``chinese``/``english``. Output:
 ``{save_dir}/{model_name}-{UTT|FRA}/{name}.npy``; empty transcripts get
 zeros. The BERT family is ported (bert, roberta, xlm-roberta, camembert,
 electra); the other branches exit with the ROADMAP item that ports them.
+``--finetuned_ckpt DIR`` replaces the loaded weights with a fine-tuned
+backbone (``main_release --model=e2e_model --savemodel``), held to the
+selected architecture's keys and shapes.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ def _not_ported(model_type: str) -> str | None:
 
 
 def main(argv=None):
-    from ..core.checkpoint import load_tokenizer, read_hf_config, read_hf_weights
+    from ..core.checkpoint import (load_tokenizer, read_finetuned, read_hf_config,
+                                   read_hf_weights)
     from ..core.config import resolve_dataset_args
     from ..encoders.bert import BertConfig, load_hf_state_dict
     from ..features.text import TextExtractor
@@ -68,12 +72,10 @@ def main(argv=None):
     p.add_argument("--profile", type=str, default=None,
                    help="write a torch.profiler Chrome trace to this dir")
     p.add_argument("--finetuned_ckpt", type=str, default=None,
-                   help="orbax dir of a fine-tuned backbone (not ported yet)")
+                   help="checkpoint dir of a fine-tuned backbone "
+                        "(main_release --savemodel's model/fold{i}_backbone)")
     args = p.parse_args(argv)
 
-    if args.finetuned_ckpt:
-        raise SystemExit("--finetuned_ckpt restores an orbax checkpoint of the "
-                         "JAX trainer, which is not ported yet (ROADMAP A17)")
     resolve_dataset_args(args, trans_path="transcriptions", save_dir="features")
 
     path = (os.path.join(args.pretrain_dir, args.model_name)
@@ -87,7 +89,10 @@ def main(argv=None):
                          f"yet (ROADMAP {item}); use python -m "
                          f"mertools_tpu.cli.extract_text")
     cfg = BertConfig.from_hf(hf_cfg)
-    ex = TextExtractor(cfg, load_hf_state_dict(read_hf_weights(path)),
+    params = load_hf_state_dict(read_hf_weights(path))
+    if args.finetuned_ckpt:
+        params = read_finetuned(args.finetuned_ckpt, params, load_hf_state_dict)
+    ex = TextExtractor(cfg, params,
                        layer_ids=tuple(int(x) for x in args.layer_ids.split(",")),
                        compute_dtype=args.compute_dtype,
                        device=f"cuda:{args.gpu}" if args.device == "cuda" else "cpu")

@@ -13,7 +13,11 @@ and its weights) without ``transformers`` and runs
 :class:`..features.vision.VisionExtractor` on ``--device`` (default
 ``cuda``, card index ``--gpu``). Output:
 ``{save_dir}/{model_name}-{UTT|FRA}/{name}.npy``. The other families exit
-with the ROADMAP item that ports them.
+with the ROADMAP item that ports them. ``--finetuned_ckpt DIR`` replaces the
+loaded weights with a fine-tuned backbone (``main_release
+--model=e2e_model --savemodel``), held to the selected architecture's keys
+and shapes; ``--compute_dtype int8`` runs the transformer layers' products
+as dynamic w8a8 (``ops/quant.int8_dot_general``).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ _NOT_PORTED = ("videomae", "dinov2", "dino2", "data2vec", "beit", "eva-clip-g",
 
 def build_extractor(args):
     """The CLIP extractor of ``args``; SystemExit for what is not ported."""
-    from ..core.checkpoint import read_hf_config, read_hf_weights
+    from ..core.checkpoint import read_finetuned, read_hf_config, read_hf_weights
     from ..encoders.vit_clip import CLIPVisionConfig, load_hf_state_dict
     from ..features.vision import VisionExtractor
 
@@ -46,20 +50,16 @@ def build_extractor(args):
                          f"ported to mertools_tpu_torch yet (ROADMAP A9, the "
                          f"remaining encoder zoo); use python -m "
                          f"mertools_tpu.cli.extract_vision")
-    if args.compute_dtype == "int8":
-        raise SystemExit("--compute_dtype int8 (the encoder's matmuls through "
-                         "ops/quant.int8_dot_general) is not ported yet "
-                         "(ROADMAP A17)")
-    if args.finetuned_ckpt:
-        raise SystemExit("--finetuned_ckpt restores an orbax checkpoint of the "
-                         "JAX trainer, which is not ported yet (ROADMAP A17)")
     path = (os.path.join(args.pretrain_dir, args.model_name)
             if args.pretrain_dir else args.model_name)
     cfg = CLIPVisionConfig.from_hf(read_hf_config(path))
     if args.tome_r:   # ToMe production mode (CLS contract unchanged)
         cfg = dataclasses.replace(cfg, tome_r=args.tome_r)
+    params = load_hf_state_dict(read_hf_weights(path))
+    if args.finetuned_ckpt:
+        params = read_finetuned(args.finetuned_ckpt, params, load_hf_state_dict)
     return VisionExtractor(
-        cfg, load_hf_state_dict(read_hf_weights(path)),
+        cfg, params,
         max_frames=args.max_frames, compute_dtype=args.compute_dtype,
         device=f"cuda:{args.gpu}" if args.device == "cuda" else "cpu")
 
@@ -79,8 +79,9 @@ def main(argv=None):
     p.add_argument("--max_frames", type=int, default=64)
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=[None, "bf16", "int8"],
-                   help="bf16: params and activations in bfloat16; int8 is "
-                        "not ported yet; default fp32 (TF32 off) for parity")
+                   help="bf16: params and activations in bfloat16; int8: bf16 "
+                        "with w8a8 products in the transformer layers; default "
+                        "fp32 (TF32 off) for parity")
     p.add_argument("--tome_r", type=int, default=0,
                    help="Token Merging r per layer (approximate features)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
@@ -88,7 +89,8 @@ def main(argv=None):
     p.add_argument("--profile", type=str, default=None,
                    help="write a torch.profiler Chrome trace to this dir")
     p.add_argument("--finetuned_ckpt", type=str, default=None,
-                   help="orbax dir of a fine-tuned backbone (not ported yet)")
+                   help="checkpoint dir of a fine-tuned backbone "
+                        "(main_release --savemodel's model/fold{i}_backbone)")
     args = p.parse_args(argv)
 
     resolve_dataset_args(args, face_dir="openface_face", save_dir="features")

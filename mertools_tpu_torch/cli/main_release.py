@@ -18,9 +18,17 @@ published ``run.sh`` recipes translate 1:1:
   * Every feature-level fusion model of the zoo runs (``--model=attention``,
     ``tfn``, ``lmf``, ``misa``, ``mmim``, ``mfn``, ``graph_mfn``, ``mfm``,
     ``mctn``, ``mult``, ``ef_lstm``, ``lf_dnn``), and top-N fusion with
-    ``--fusion_topn=N --model=attention_topn``. The raw-input models
-    (``e2e_model``, ``videomae_pretrain``) exit naming ROADMAP A7,
-    ``--savemodel`` naming A7 and A17.
+    ``--fusion_topn=N --model=attention_topn``.
+  * Raw-input fine-tuning: ``--model=e2e_model --e2e_name=NAME`` with
+    ``--raw_audio_root`` / ``--trans_csv`` / ``--face_npy_root`` (by NAME's
+    modality) and ``--pretrain_dir`` holding ``NAME/`` (``config.json`` and
+    its weights); ``--savemodel`` writes each fold's best-epoch backbone to
+    ``{save_root}/model/fold{i}_backbone`` (``config.json`` +
+    ``pytorch_model.bin``), which the extraction CLIs read back with
+    ``--finetuned_ckpt``. ``--model=videomae_pretrain`` exits naming ROADMAP
+    A7b.
+  * The result files' ``args`` leave out the run-time entries whose names
+    start with ``_`` (the pretrained backbone's weights, a tokenizer).
 """
 
 from __future__ import annotations
@@ -123,7 +131,8 @@ def resolve_paths(args: Args) -> None:
         raise SystemExit("need --label_path or a registry entry")
     for mod, feat in (("audio", args.audio_feature), ("text", args.text_feature),
                       ("video", args.video_feature)):
-        if args.fusion_topn:  # top-N picks its stores from the rank lists
+        if args.fusion_topn or args.model == "e2e_model":
+            # top-N picks its stores from the rank lists; e2e reads raw inputs
             args[f"{mod}_root"] = None
             continue
         if not feat:
@@ -139,9 +148,10 @@ def modality_tag(features: list[str]) -> str:
 def check_ported(args: Args) -> None:
     """Exit naming the ROADMAP item of what this package does not run yet,
     or what a flag needs beside it."""
-    if args.model in ("e2e_model", "videomae_pretrain"):
-        raise SystemExit(f"--model={args.model}: e2e fine-tuning is not ported "
-                         f"to mertools_tpu_torch yet (ROADMAP A7)")
+    if args.model == "videomae_pretrain":
+        raise SystemExit("--model=videomae_pretrain: masked video pretraining "
+                         "is not ported to mertools_tpu_torch yet (ROADMAP A7b, "
+                         "after A9b's VideoMAE)")
     if args.fusion_topn and args.model != "attention_topn":
         # the JAX package reads the tune space of --model before it
         # defaults the model, so a missing --model raises KeyError: None
@@ -152,9 +162,11 @@ def check_ported(args: Args) -> None:
     if args.model not in registry.names("model"):
         raise SystemExit(f"--model={args.model}: not a fusion model; it runs "
                          f"{', '.join(registry.names('model'))}")
-    if args.savemodel:
-        raise SystemExit("--savemodel saves an e2e backbone, which is not "
-                         "ported to mertools_tpu_torch yet (ROADMAP A7, A17)")
+    if args.model == "e2e_model" and not args.e2e_name:
+        raise SystemExit("--model=e2e_model needs --e2e_name")
+    if args.savemodel and args.model != "e2e_model":
+        print(f"--savemodel: --model={args.model} has no fine-tuned backbone; "
+              f"nothing is saved")
 
 
 def main(argv=None):
@@ -181,7 +193,8 @@ def main(argv=None):
         args.feat_scale = 1
     elif args.feat_scale is None:
         args.feat_scale = 6 if args.feat_type == "frm_align" else 12
-    if args.feat_type in ("frm_align", "frm_unalign") and not args.fusion_topn:
+    if (args.feat_type in ("frm_align", "frm_unalign") and not args.fusion_topn
+            and args.model != "e2e_model"):
         for f in (args.audio_feature, args.text_feature, args.video_feature):
             if not (f or "").endswith("FRA"):
                 raise SystemExit(f"{args.feat_type} needs -FRA features, got {f}")
@@ -229,9 +242,11 @@ def main(argv=None):
     if args.fusion_topn is not None:
         prefix += f"_fusiontopn:{args.fusion_topn}_modality:{args.fusion_modality}"
     stamp = time.time()
+    saved_args = np.array({k: v for k, v in args.items() if not k.startswith("_")},
+                          dtype=object)
 
     save_path = os.path.join(res_root, f"cv_{prefix}_{result.cv_str}_{stamp}.npz")
-    np.savez_compressed(save_path, args=np.array(dict(args), dtype=object),
+    np.savez_compressed(save_path, args=saved_args,
                         cv=np.array(result.cv, dtype=object),
                         duration=result.duration)
     print(f"save results in {save_path}")
@@ -241,7 +256,7 @@ def main(argv=None):
             {k: tres[k] for k in ("emofscore", "emoacc", "valmse") if k in tres})
         tpath = os.path.join(res_root, f"{name}_{prefix}_{out_str}_{stamp}.npz")
         np.savez_compressed(
-            tpath, args=np.array(dict(args), dtype=object),
+            tpath, args=saved_args,
             emoprobs=tres.get("emoprobs", np.zeros(0)),
             emolabels=tres.get("emolabels", np.zeros(0)),
             valpreds=tres.get("valpreds", np.zeros(0)),

@@ -5,7 +5,12 @@ load every checkpoint through :func:`read_hf_config` and
 :func:`read_hf_weights`; each encoder's config fills the keys a file lacks
 from ``transformers``' class defaults (:func:`with_class_defaults`), and
 its ``load_hf_state_dict`` maps the raw keys onto its module.
-``transformers`` is needed only for a tokenizer (:func:`load_tokenizer`)."""
+``transformers`` is needed only for a tokenizer (:func:`load_tokenizer`).
+
+:func:`write_hf_checkpoint` writes the same layout (``config.json`` +
+``pytorch_model.bin``): ``main_release --savemodel`` saves a fine-tuned
+e2e backbone so, and the extraction CLIs' ``--finetuned_ckpt`` reads it
+back through :func:`read_finetuned`."""
 
 from __future__ import annotations
 
@@ -55,6 +60,34 @@ def read_hf_weights(path: str) -> dict:
     if not sd:
         raise SystemExit(f"{path}: no *.safetensors or pytorch_model*.bin")
     return sd
+
+
+def write_hf_checkpoint(path: str, config: dict, state_dict: dict) -> str:
+    """Write the checkpoint directory ``path``: ``config.json`` (an HF
+    config dict) and ``pytorch_model.bin`` (``torch.save`` of the state
+    dict, on the CPU). Returns ``path``."""
+    import torch
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
+               os.path.join(path, "pytorch_model.bin"))
+    return path
+
+
+def read_finetuned(path: str, reference: dict, load_hf_state_dict) -> dict:
+    """``--finetuned_ckpt``: the weights of the checkpoint directory
+    ``path`` (e.g. ``model/fold0_backbone`` of ``main_release
+    --savemodel``) through the encoder's ``load_hf_state_dict``, held to
+    ``reference`` (the selected architecture's state dict): the same keys
+    and shapes, else ValueError naming the mismatch."""
+    from .trees import check_tree_like
+
+    restored = load_hf_state_dict(read_hf_weights(path))
+    check_tree_like(restored, reference, "--finetuned_ckpt")
+    print(f"loaded fine-tuned backbone from {path}")
+    return restored
 
 
 def load_tokenizer(path: str):

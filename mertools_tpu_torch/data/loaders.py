@@ -15,8 +15,10 @@ scheme — and builds :class:`FeatureDataset` objects from the feature store:
 
 "emo(±)" = accuracy/WAF of the valence *sign* over non-zero labels
 (cmudata.py:74-77 / sims.py:69-77). The metrics are the port's numpy ones.
-Under ``--fusion_topn`` a loader builds :class:`TopNFeatureDataset`s; the
-e2e and videomae branches of the JAX loaders wait for ROADMAP A7.
+Under ``--fusion_topn`` a loader builds :class:`TopNFeatureDataset`s, and
+under ``--model=e2e_model`` :class:`.e2e_dataset.E2EDataset`s of raw
+inputs (``--raw_audio_root``, ``--trans_csv``, ``--face_npy_root``); the
+videomae branch of the JAX loaders waits for ROADMAP A7b.
 """
 
 from __future__ import annotations
@@ -76,9 +78,12 @@ class BaseLoader:
 
     def _build(self, names, emos, vals, snr: str | None = None):
         a = self.args
-        if a.model in ("videomae_pretrain", "e2e_model"):
-            raise SystemExit(f"--model={a.model}: raw-input datasets are not "
-                             f"ported to mertools_tpu_torch yet (ROADMAP A7)")
+        if a.model == "videomae_pretrain":
+            raise SystemExit("--model=videomae_pretrain: its raw-video dataset "
+                             "and model are not ported to mertools_tpu_torch "
+                             "yet (ROADMAP A7b, after A9b's VideoMAE)")
+        if a.model == "e2e_model":  # raw-input fine-tuning (e2e_data.py)
+            return self._build_e2e(names, emos, vals)
         if a.fusion_topn:  # top-N fusion (MER2024 feat_data_topn.py)
             ds = TopNFeatureDataset.build(
                 names, emos, vals, a.features_root, int(a.fusion_topn),
@@ -96,6 +101,28 @@ class BaseLoader:
             names, emos, vals, root(a.audio_root), root(a.text_root),
             root(a.video_root),
             feat_type=a.feat_type or "utt", feat_scale=a.feat_scale or 1)
+
+    def _build_e2e(self, names, emos, vals):
+        """The JAX loader's e2e branch: ``--e2e_nseg`` windows of
+        ``--e2e_seglen`` samples a wav, the transcripts through the
+        encoder's tokenizer (``core.checkpoint.load_tokenizer`` of
+        ``{pretrain_dir}/{e2e_name}``), or 16 uint8 face frames a clip."""
+        from ..core import checkpoint
+        from ..models.e2e_model import e2e_modality
+        from .e2e_dataset import E2EDataset
+
+        a = self.args
+        modality = e2e_modality(a.e2e_name)
+        if modality == "audio":
+            return E2EDataset.build_audio(names, emos, vals, a.raw_audio_root,
+                                          n_seg=a.get("e2e_nseg") or 8,
+                                          seg_len=a.get("e2e_seglen") or 32000)
+        if modality == "text":
+            pretrain = a.get("pretrain_dir")
+            tok = checkpoint.load_tokenizer(
+                os.path.join(pretrain, a.e2e_name) if pretrain else a.e2e_name)
+            return E2EDataset.build_text(names, emos, vals, a.trans_csv, tok)
+        return E2EDataset.build_video(names, emos, vals, a.face_npy_root)
 
     # -- protocol -----------------------------------------------------------
     def load(self, seed: int = 0):

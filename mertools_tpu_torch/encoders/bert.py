@@ -91,6 +91,25 @@ class BertConfig:
                                     if hf["model_type"] in _ROBERTA_TYPES
                                     else None))
 
+    def to_config_json(self) -> dict:
+        """An HF ``config.json`` dict that :meth:`from_hf` reads back as
+        this config (model type ``roberta`` for RoBERTa-style positions,
+        ``electra`` for factorised embeddings, else ``bert``)."""
+        model_type = ("roberta" if self.position_pad_id is not None else
+                      "electra" if self.embedding_size else "bert")
+        out = dict(model_type=model_type, vocab_size=self.vocab_size,
+                   hidden_size=self.hidden_size,
+                   num_hidden_layers=self.num_hidden_layers,
+                   num_attention_heads=self.num_attention_heads,
+                   intermediate_size=self.intermediate_size,
+                   max_position_embeddings=self.max_position_embeddings,
+                   type_vocab_size=self.type_vocab_size,
+                   layer_norm_eps=self.layer_norm_eps,
+                   embedding_size=self.embedding_size or self.hidden_size)
+        if self.position_pad_id is not None:
+            out["pad_token_id"] = self.position_pad_id
+        return out
+
 
 class _Embeddings(nn.Module):
     def __init__(self, cfg: BertConfig):

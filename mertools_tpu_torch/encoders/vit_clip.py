@@ -16,7 +16,10 @@ Pixels come in NHWC as in the JAX package; the patch conv runs in NCHW with
 HF's OIHW weight. With ``use_flash_attention`` the attention is kernel B1
 (every key valid), or its plain version on CPU tensors; Token Merging
 (``tome_r``) adds log(sizes) to the logits, which B1 does not take, so the
-two exclude each other.
+two exclude each other. ``dot_general`` (e.g. ``ops.quant.int8_dot_general``)
+replaces the product of the transformer layers' Dense sites only (q/k/v/out
+and the MLP pair); the patch conv and the visual projection stay float, as
+in the JAX encoder.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from torch import nn
 
 from ..core.checkpoint import with_class_defaults
 from ..ops.flash_attention import flash_attention
+from ..ops.quant import DotGeneralLinear, set_dot_general
 from .random_init import normal_state_dict
 from .vit import tome_merge
 
@@ -95,6 +99,18 @@ class CLIPVisionConfig:
                    projection_dim=top["projection_dim"],
                    layer_norm_eps=v["layer_norm_eps"])
 
+    def to_config_json(self) -> dict:
+        """A ``CLIPVisionModelWithProjection`` ``config.json`` dict that
+        :meth:`from_hf` reads back as this config (ToMe and the kernel
+        switch are run-time choices, not checkpoint keys)."""
+        return dict(model_type="clip_vision_model", hidden_size=self.hidden_size,
+                    num_hidden_layers=self.num_hidden_layers,
+                    num_attention_heads=self.num_attention_heads,
+                    intermediate_size=self.intermediate_size,
+                    image_size=self.image_size, patch_size=self.patch_size,
+                    projection_dim=self.projection_dim,
+                    layer_norm_eps=self.layer_norm_eps)
+
 
 class _Embeddings(nn.Module):
     def __init__(self, cfg: CLIPVisionConfig):
@@ -119,17 +135,17 @@ class _Attention(nn.Module):
     def __init__(self, cfg: CLIPVisionConfig):
         super().__init__()
         H = cfg.hidden_size
-        self.q_proj = nn.Linear(H, H)
-        self.k_proj = nn.Linear(H, H)
-        self.v_proj = nn.Linear(H, H)
-        self.out_proj = nn.Linear(H, H)
+        self.q_proj = DotGeneralLinear(H, H)
+        self.k_proj = DotGeneralLinear(H, H)
+        self.v_proj = DotGeneralLinear(H, H)
+        self.out_proj = DotGeneralLinear(H, H)
 
 
 class _MLP(nn.Module):
     def __init__(self, cfg: CLIPVisionConfig):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.fc1 = DotGeneralLinear(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = DotGeneralLinear(cfg.intermediate_size, cfg.hidden_size)
 
 
 class _Layer(nn.Module):
@@ -192,12 +208,13 @@ class CLIPVisionEncoder(nn.Module):
     """pixel_values (B, S, S, 3) -> dict(image_embeds (B, P), pooled (B, H),
     last_hidden (B, N, H)); N is 1 + patches less the ToMe merges."""
 
-    def __init__(self, cfg: CLIPVisionConfig):
+    def __init__(self, cfg: CLIPVisionConfig, dot_general=None):
         super().__init__()
         self.cfg = cfg
         self.vision_model = _VisionTransformer(cfg)
         self.visual_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim,
                                            bias=False)
+        set_dot_general(self.vision_model.encoder, dot_general)
 
     def forward(self, pixel_values: torch.Tensor) -> dict:
         vm = self.vision_model

@@ -17,6 +17,10 @@ weight-normed positional conv is stored materialised as
 package: wav (B, T), hidden states (B, T, H); the conv stack runs in NCW.
 With ``use_flash_attention`` the standard attention calls the hand-written
 CUDA kernel (:mod:`..ops.flash_attention`), or its plain version on CPU.
+``dot_general`` (e.g. ``ops.quant.int8_dot_general``) replaces the product
+of the transformer layers' Dense sites only (q/k/v/out projections and the
+feed-forward pair); the conv frontend, the feature projection and the
+positional conv stay float, as in the JAX encoder.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from torch import nn
 
 from ..core.checkpoint import with_class_defaults
 from ..ops.flash_attention import flash_attention
+from ..ops.quant import DotGeneralLinear, set_dot_general
 
 # transformers' class defaults of the keys ``Wav2Vec2Config.from_hf`` reads,
 # by model type (a key a class lacks keeps from_hf's own fallback)
@@ -122,6 +127,28 @@ class Wav2Vec2Config:
                                    else 0),
                    conv_pos_kernel_size=getattr(hf_cfg,
                                                 "conv_pos_kernel_size", 19))
+
+    def to_config_json(self) -> dict:
+        """An HF ``config.json`` dict that :meth:`from_config_json` reads
+        back as this config (model type ``wavlm`` for the gated relative
+        attention, ``data2vec-audio`` for the positional conv stack, else
+        ``hubert``)."""
+        model_type = ("wavlm" if self.attn_type == "wavlm" else
+                      "data2vec-audio" if self.pos_conv_depth > 0 else "hubert")
+        return dict(
+            model_type=model_type, hidden_size=self.hidden_size,
+            num_hidden_layers=self.num_hidden_layers,
+            num_attention_heads=self.num_attention_heads,
+            intermediate_size=self.intermediate_size, conv_dim=list(self.conv_dim),
+            conv_kernel=list(self.conv_kernel), conv_stride=list(self.conv_stride),
+            conv_bias=self.conv_bias, feat_extract_norm=self.feat_extract_norm,
+            do_stable_layer_norm=self.do_stable_layer_norm,
+            num_conv_pos_embeddings=(self.pos_conv_depth if self.pos_conv_depth > 0
+                                     else self.num_conv_pos_embeddings),
+            num_conv_pos_embedding_groups=self.num_conv_pos_embedding_groups,
+            layer_norm_eps=self.layer_norm_eps, num_buckets=self.num_buckets,
+            max_bucket_distance=self.max_distance,
+            conv_pos_kernel_size=self.conv_pos_kernel_size)
 
     def feat_lengths(self, wav_lengths):
         """conv output frame count per sample (HF _get_feat_extract_output_lengths).
@@ -259,10 +286,10 @@ class _Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         H = cfg.hidden_size
-        self.q_proj = nn.Linear(H, H)
-        self.k_proj = nn.Linear(H, H)
-        self.v_proj = nn.Linear(H, H)
-        self.out_proj = nn.Linear(H, H)
+        self.q_proj = DotGeneralLinear(H, H)
+        self.k_proj = DotGeneralLinear(H, H)
+        self.v_proj = DotGeneralLinear(H, H)
+        self.out_proj = DotGeneralLinear(H, H)
 
     def _qkv(self, x):
         B, T, H = x.shape
@@ -327,8 +354,9 @@ class _WavLMAttention(_Attention):
 class _FeedForward(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate_dense = DotGeneralLinear(cfg.hidden_size,
+                                                   cfg.intermediate_size)
+        self.output_dense = DotGeneralLinear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
         return self.output_dense(F.gelu(self.intermediate_dense(x)))
@@ -364,14 +392,16 @@ class _Encoder(nn.Module):
 
 class Wav2Vec2Encoder(nn.Module):
     """wav (B, T) [+ wav lengths (B,)] -> tuple of hidden states
-    (num_layers + 1, each (B, F, H))."""
+    (num_layers + 1, each (B, F, H)). No dropout anywhere: the JAX encoder
+    has none, so training mode computes what eval mode does."""
 
-    def __init__(self, cfg: Wav2Vec2Config):
+    def __init__(self, cfg: Wav2Vec2Config, dot_general=None):
         super().__init__()
         self.cfg = cfg
         self.feature_extractor = _FeatureExtractor(cfg)
         self.feature_projection = _FeatureProjection(cfg)
         self.encoder = _Encoder(cfg)
+        set_dot_general(self.encoder.layers, dot_general)
 
     def forward(self, wav: torch.Tensor,
                 wav_lengths: torch.Tensor | None = None) -> tuple:

@@ -34,6 +34,7 @@ import torch
 
 from ..core.device import resolve_device, to_pcm16, upload
 from ..encoders.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
+from ..ops.quant import int8_dot_general
 
 MAX_SEGMENT = 16000 * 10  # 10 s at 16 kHz (reference maxlen)
 
@@ -92,7 +93,9 @@ class AudioExtractor:
     sample_budget: int = 16 * MAX_SEGMENT  # samples per device batch
     # None/"f32": fp32 parity mode (TF32 off for matmuls AND cuDNN convs).
     # "bf16": params and activations in bfloat16, as the JAX package's bf16
-    # mode casts them.
+    # mode casts them. "int8": bf16, with dynamic w8a8 products
+    # (ops.quant.int8_dot_general) at the transformer layers' Dense sites, as
+    # the JAX package's int8 mode runs them (~1-2% rel err class).
     compute_dtype: str | None = None
     # The hand-written CUDA attention kernel (standard attention only); on
     # CPU tensors the same call takes its plain version.
@@ -105,21 +108,18 @@ class AudioExtractor:
     transfer_dtype: str = "f32"
 
     def __post_init__(self):
-        if self.compute_dtype == "int8":
-            raise NotImplementedError(
-                "compute_dtype='int8' (w8a8 encoder matmuls, ops/quant.py) is "
-                "not ported yet: ROADMAP A17")
-        if self.compute_dtype not in (None, "f32", "bf16"):
+        if self.compute_dtype not in (None, "f32", "bf16", "int8"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if self.transfer_dtype not in ("f32", "int16"):
             raise ValueError(f"transfer_dtype {self.transfer_dtype!r}")
-        fast = self.compute_dtype == "bf16"
+        fast = self.compute_dtype in ("bf16", "int8")
         self._device = resolve_device(self.device, fp32=not fast)
         self._dtype = torch.bfloat16 if fast else torch.float32
         if self.flash is True and self.cfg.attn_type == "standard":
             self.cfg = dataclasses.replace(self.cfg, use_flash_attention=True)
         with torch.device("meta"):
-            enc = Wav2Vec2Encoder(self.cfg)
+            enc = Wav2Vec2Encoder(self.cfg, dot_general=(
+                int8_dot_general if self.compute_dtype == "int8" else None))
         enc.load_state_dict(self.params, strict=True, assign=True)
         self._enc = enc.to(self._device, self._dtype).eval()
 

@@ -25,6 +25,7 @@ import torch
 
 from ..core.device import resolve_device, upload
 from ..encoders.vit_clip import CLIPVisionConfig, CLIPVisionEncoder
+from ..ops.quant import int8_dot_general
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -60,7 +61,9 @@ class VisionExtractor:
     batch_size: int = 64
     max_frames: int = 64
     # None/"f32": fp32 parity mode (TF32 off). "bf16": params and
-    # activations in bfloat16 (the preprocessing stays fp32).
+    # activations in bfloat16 (the preprocessing stays fp32). "int8": bf16,
+    # with dynamic w8a8 products (ops.quant.int8_dot_general) at the
+    # transformer layers' Dense sites, as the JAX package's int8 mode.
     compute_dtype: str | None = None
     # kernel B1 for the attention (not with cfg.tome_r > 0: ValueError); on
     # CPU tensors the same call takes its plain version
@@ -68,19 +71,16 @@ class VisionExtractor:
     device: object = "cuda"
 
     def __post_init__(self):
-        if self.compute_dtype == "int8":
-            raise NotImplementedError(
-                "compute_dtype='int8' (w8a8 encoder matmuls, ops/quant.py) is "
-                "not ported yet: ROADMAP A17")
-        if self.compute_dtype not in (None, "f32", "bf16"):
+        if self.compute_dtype not in (None, "f32", "bf16", "int8"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
-        fast = self.compute_dtype == "bf16"
+        fast = self.compute_dtype in ("bf16", "int8")
         self._device = resolve_device(self.device, fp32=not fast)
         self._dtype = torch.bfloat16 if fast else torch.float32
         if self.flash:
             self.cfg = dataclasses.replace(self.cfg, use_flash_attention=True)
         with torch.device("meta"):
-            enc = CLIPVisionEncoder(self.cfg)
+            enc = CLIPVisionEncoder(self.cfg, dot_general=(
+                int8_dot_general if self.compute_dtype == "int8" else None))
         enc.load_state_dict(self.params, strict=True, assign=True)
         self._enc = enc.to(self._device, self._dtype).eval()
 

@@ -12,8 +12,8 @@ mode.
 
 Models register with ``@registry.register_model(name)`` and are built from
 an :class:`~mertools_tpu_torch.core.config.Args` namespace and the input
-widths by :func:`get_model`. The raw-input models (``e2e_model``,
-``videomae_pretrain``) are ROADMAP A7.
+widths by :func:`get_model`; the raw-input ``e2e_model``
+(:mod:`.e2e_model`) takes no widths. ``videomae_pretrain`` is ROADMAP A7b.
 
 :func:`init_flax_style` draws the JAX package's initial distribution
 (Flax's defaults: ``lecun_normal`` kernels, orthogonal recurrent kernels,
@@ -42,12 +42,11 @@ _TRUNC_STD = 0.87962566103423978
 def get_model(args: Args, dims: tuple[int, ...]) -> nn.Module:
     """Instantiate the fusion model ``args.model`` for input widths
     ``dims`` = (audio, text, video), or one width a feature set for
-    ``attention_topn``."""
+    ``attention_topn`` (``e2e_model`` ignores them)."""
     if args.model not in registry.names("model"):
-        raise SystemExit(f"--model={args.model}: not a fusion model of "
-                         f"mertools_tpu_torch (raw-input e2e_model and "
-                         f"videomae_pretrain are ROADMAP A7); it runs "
-                         f"{', '.join(registry.names('model'))}")
+        raise SystemExit(f"--model={args.model}: not a model of "
+                         f"mertools_tpu_torch (videomae_pretrain is ROADMAP "
+                         f"A7b); it runs {', '.join(registry.names('model'))}")
     return registry.get_model(args.model).from_args(args, dims)
 
 

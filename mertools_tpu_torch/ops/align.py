@@ -1,5 +1,4 @@
-"""Temporal feature alignment, host half (port of
-``mertools_tpu/ops/align.py:43-88``).
+"""Temporal feature alignment (port of ``mertools_tpu/ops/align.py``).
 
 Reference semantics (``MERBench/toolkit/utils/read_data.py:72-125``):
 
@@ -12,8 +11,11 @@ Reference semantics (``MERBench/toolkit/utils/read_data.py:72-125``):
     length is ``dst * pool`` with ``pool = ceil(T / dst)``, then mean-pool
     consecutive groups of ``pool`` frames.
 
-The JAX module's batched device half (``:94-170``) has no caller outside
-its tests; it waits for ROADMAP A7.
+The host half (``*_np``) works on lists of (T, D) arrays. The batched
+device half (``map_feature_batched``, ``masked_mean_over_time``,
+``scale_compress_batched``) takes end-padded (B, T, D) buffers with their
+lengths and applies the same semantics as one product with a (B, dst, T)
+weight matrix, in fp32 (TF32 off on a card, ``core.device.resolve_device``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 
 def map_feature_np(x: np.ndarray, dst_len: int) -> np.ndarray:
@@ -69,3 +72,58 @@ def pad_to_maxlen_np(feats: list[np.ndarray], max_len: int | None = None):
     max_len = int(max_len if max_len is not None else lengths.max())
     out = np.stack([map_feature_np(f, max_len) for f in feats], axis=0)
     return out, lengths
+
+
+# ---------------------------------------------------------------------------
+# Device (torch) batched implementation.
+# ---------------------------------------------------------------------------
+def _group_weights(lengths: torch.Tensor, dst: torch.Tensor, src_len: int,
+                   dst_len: int) -> torch.Tensor:
+    """W (B, dst_len, src_len): the front-pad + mean-pool of each sample's
+    ``lengths[b]`` valid frames onto its first ``dst[b]`` output rows
+    (pool = ceil(len / dst), pad = dst * pool - len); rows past ``dst[b]``
+    are 0."""
+    pool = torch.clamp((lengths + dst - 1) // dst.clamp_min(1), min=1)
+    pad = dst * pool - lengths
+    t_idx = torch.arange(src_len, device=lengths.device)[None, None, :]
+    j_idx = torch.arange(dst_len, device=lengths.device)[None, :, None]
+    group = (t_idx + pad[:, None, None]) // pool[:, None, None]
+    keep = ((group == j_idx) & (t_idx < lengths[:, None, None])
+            & (j_idx < dst[:, None, None]))
+    return keep.float() / pool[:, None, None].float()
+
+
+def _mapping_weights(lengths: torch.Tensor, src_len: int, dst_len: int) -> torch.Tensor:
+    """W (B, dst_len, src_len) such that out = W @ x_padded, for end-padded
+    ``x_padded`` (B, src_len, D) with ``lengths`` valid frames a row: the
+    reference's front-pad + mean-pool."""
+    lengths = lengths.to(torch.int64)
+    return _group_weights(lengths, torch.full_like(lengths, dst_len), src_len, dst_len)
+
+
+def map_feature_batched(x: torch.Tensor, lengths: torch.Tensor, dst_len: int) -> torch.Tensor:
+    """Batched reference-semantics resample: (B, T, D) + lengths (B,) ->
+    (B, dst_len, D), one product in fp32, in x's dtype."""
+    w = _mapping_weights(lengths, x.shape[1], dst_len)
+    return torch.einsum("bjt,btd->bjd", w, x.float()).to(x.dtype)
+
+
+def masked_mean_over_time(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) + lengths -> (B, D): the mean over each row's valid
+    (end-padded) frames, the device ``align_to_utt`` (read_data.py:92-97)."""
+    t_idx = torch.arange(x.shape[1], device=x.device)[None, :]
+    mask = (t_idx < lengths[:, None]).float()
+    total = torch.einsum("btd,bt->bd", x.float(), mask)
+    return (total / lengths[:, None].clamp_min(1).float()).to(x.dtype)
+
+
+def scale_compress_batched(x: torch.Tensor, lengths: torch.Tensor, scale: int,
+                           dst_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched ``feature_scale_compress``: each row to ceil(len / scale)
+    frames, at the front of an end-padded buffer of ``dst_len`` rows.
+    Returns (y (B, dst_len, D), the new lengths)."""
+    lengths = lengths.to(torch.int64)
+    new_len = (lengths + scale - 1) // scale
+    w = _group_weights(lengths, new_len, x.shape[1], dst_len)
+    y = torch.einsum("bjt,btd->bjd", w, x.float()).to(x.dtype)
+    return y, new_len

@@ -13,6 +13,11 @@ Two modes, as in the JAX package:
   activation's dtype and the scale is applied to the output. This is the
   serving mode of ``mllm/generate.py`` (``W8Linear``).
 
+:class:`DotGeneralLinear` is the encoders' hook for the first mode: an
+``nn.Linear`` whose product goes through a ``dot_general(lhs, kernel (K,
+N))`` when one is set, as Flax's ``nn.Dense(dot_general=...)`` does in the
+JAX encoders' transformer layers.
+
 Rounding is half to even on both sides (``jnp.round`` and ``torch.round``),
 and every division is the JAX package's, so codes and scales are bit-equal
 to the JAX functions'. Weights here are in the PyTorch layout (out, in); the
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def _absmax_scale(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -61,7 +67,9 @@ def _round_up(n: int, m: int) -> int:
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int8 (M, K) @ int8 (K, N) -> int32 (M, N) through ``torch._int_mm``,
     zero-padding M to at least 17 and K, N to multiples of 8 (zeros add
-    nothing to an integer sum)."""
+    nothing to an integer sum). ``a`` goes in row-major and ``b``
+    column-major, the layouts cuBLASLt's int8 GEMM takes on every CUDA
+    version."""
     M, K = a.shape
     N = b.shape[1]
     Mp, Kp, Np = max(17, M), _round_up(K, 8), _round_up(N, 8)
@@ -69,7 +77,7 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a = F.pad(a, (0, Kp - K, 0, Mp - M))
     if (Kp, Np) != (K, N):
         b = F.pad(b, (0, Np - N, 0, Kp - K))
-    return torch._int_mm(a.contiguous(), b.contiguous())[:M, :N]
+    return torch._int_mm(a.contiguous(), b.t().contiguous().t())[:M, :N]
 
 
 def int8_dot_general(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -83,3 +91,27 @@ def int8_dot_general(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     acc = int_mm(ql.reshape(-1, ql.shape[-1]), qr).reshape(*lead, -1)
     out = acc.float() * (ls / 127.0) * (rs / 127.0)
     return out.to(out_dtype)
+
+
+class DotGeneralLinear(nn.Linear):
+    """``nn.Linear`` (same parameters, same state-dict keys) whose product
+    runs through ``self.dot_general(x, weight.T)`` when it is set (e.g.
+    :func:`int8_dot_general`), the bias added after in x's dtype as Flax's
+    ``Dense`` adds it; with ``dot_general`` None it is ``nn.Linear``."""
+
+    dot_general = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dot_general is None:
+            return super().forward(x)
+        y = self.dot_general(x, self.weight.t())
+        return y if self.bias is None else y + self.bias
+
+
+def set_dot_general(module: nn.Module, dot_general) -> nn.Module:
+    """Set (or, with None, clear) the product of every
+    :class:`DotGeneralLinear` in ``module``; returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, DotGeneralLinear):
+            m.dot_general = dot_general
+    return module

@@ -26,10 +26,24 @@ model is drawn by :func:`init_model` from a CPU generator seeded with
 ``seed * 1000 + fold`` (so the card and the CPU start from the same
 weights), and its dropout masks from a generator on the device with the same
 seed.
+
+``e2e_model`` (raw-input fine-tuning) runs through the same loop: a fold's
+head is drawn as above, its backbone is the pretrained one
+(``args["_e2e_backbone_params"]``, loaded over the drawn model as the JAX
+trainer overlays it, ``train/loop.py:188-193``) or, without one, drawn by
+the encoder's ``init_params``. One optimizer steps every parameter: the JAX
+trainer never applies ``e2e_param_labels``' 1/10 backbone rate. Under
+``args.savemodel`` the backbone of the last epoch whose eval metric ties
+the best so far (JAX's ``>=``; the reported best epoch is the first, by
+argmax) is copied to the host and written to
+``{save_root}/model/fold{i}_backbone`` as ``config.json`` +
+``pytorch_model.bin`` (``core.checkpoint.write_hf_checkpoint``), where the
+JAX trainer writes an orbax tree.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -72,7 +86,18 @@ def init_model(args: Args, sample_batch: dict, generator: torch.Generator
     ``sample_batch`` (host arrays: audio, text and video, or a top-N
     dataset's ``feat0..feat{K-1}``), drawn by :func:`init_flax_style` from
     ``generator``. :func:`run_cv` builds every fold through this name, so a
-    test can give the folds other starting weights."""
+    test can give the folds other starting weights.
+
+    ``e2e_model``: the head is drawn so; the backbone is drawn by its
+    encoder's ``init_params`` when there is no pretrained one, else left
+    for :func:`run_cv` to load (``args["_e2e_backbone_params"]``)."""
+    if args.model == "e2e_model":
+        model = get_model(args, ())
+        init_flax_style(model.encoder, generator)
+        init_flax_style(model.heads, generator)
+        if args.get("_e2e_backbone_params") is None:
+            model.backbone.load_state_dict(model.init_backbone(generator))
+        return model
     keys = ([f"feat{i}" for i in range(sum(k.startswith("feat") for k in sample_batch))]
             or ["audios", "texts", "videos"])
     dims = tuple(sample_batch[k].shape[-1] for k in keys)
@@ -215,9 +240,6 @@ def run_cv(args: Args, train_set: FeatureDataset,
     best epoch by ``args.metric_name`` on the eval split, keep that epoch's
     eval/test outputs; finally average test logits across folds.
     """
-    if args.get("_e2e_backbone_params") is not None or args.get("savemodel"):
-        raise SystemExit("e2e fine-tuning and --savemodel are not ported to "
-                         "mertools_tpu_torch yet (ROADMAP A7, A17)")
     dev = resolve_device(device, fp32=True)
     test_sets = test_sets or {}
     use_emo = (args.output_dim1 or 0) > 0
@@ -244,6 +266,10 @@ def run_cv(args: Args, train_set: FeatureDataset,
         sample_batch = {k: v[sample_idx[0]] for k, v in arrays.items()}
         model = init_model(args, sample_batch,
                            torch.Generator().manual_seed(fold_seed)).to(dev)
+        backbone_sd = args.get("_e2e_backbone_params")
+        if backbone_sd is not None:  # e2e: the pretrained backbone, after init
+            model.backbone.load_state_dict(backbone_sd)
+        save_backbone = bool(args.get("savemodel")) and hasattr(model, "backbone")
         opt = ClippedAdam(model.parameters(), lr=args.lr,
                              l2=args.l2 if args.l2 is not None else 1e-5,
                              grad_clip=args.grad_clip if args.grad_clip is not None else -1.0)
@@ -251,6 +277,7 @@ def run_cv(args: Args, train_set: FeatureDataset,
 
         eval_plan = epoch_plan(eval_idx, batch_size)
         epoch_stores, epoch_metrics = [], []
+        best_backbone = None  # (epoch, host copy) under --savemodel
         for epoch in range(epochs):
             tr_plan = epoch_plan(train_idx, batch_size, rng_np)
             store = run_epoch(model, opt, generator, train, tr_plan, eval_plan,
@@ -259,6 +286,9 @@ def run_cv(args: Args, train_set: FeatureDataset,
             epoch_metrics.append(metrics.gain_metric(
                 {k.replace("eval_", ""): v for k, v in store.items()
                  if k.startswith("eval_")}, metric_name))
+            if save_backbone and epoch_metrics[-1] >= max(epoch_metrics):
+                best_backbone = (epoch, {k: v.detach().to("cpu", copy=True)
+                                         for k, v in model.backbone.state_dict().items()})
             if verbose and (epoch + 1) % max(1, epochs // 4) == 0:
                 print(f"  fold {fold_i + 1} epoch {epoch + 1}: "
                       f"{metric_name}={epoch_metrics[-1]:.4f}")
@@ -266,6 +296,16 @@ def run_cv(args: Args, train_set: FeatureDataset,
         best = int(np.argmax(epoch_metrics))
         best_epochs.append(best)
         fold_best.append(epoch_stores[best])
+        if best_backbone is not None:
+            from ..core.checkpoint import write_hf_checkpoint
+
+            path = os.path.abspath(os.path.join(str(args.get("save_root") or "."),
+                                                "model", f"fold{fold_i}_backbone"))
+            write_hf_checkpoint(path, model.backbone.cfg.to_config_json(),
+                                best_backbone[1])
+            if verbose:
+                print(f"  saved fine-tuned backbone (epoch {best_backbone[0] + 1}) "
+                      f"-> {path}")
         if verbose:
             print(f"fold {fold_i + 1}/{num_folds}: best epoch {best + 1}, "
                   f"{metric_name}={epoch_metrics[best]:.4f}")

@@ -128,7 +128,7 @@ def test_cuda_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(compute_dtype="int8"), NotImplementedError),
+    (dict(compute_dtype="int4"), ValueError),
     (dict(compute_dtype="fp8"), ValueError),
     (dict(transfer_dtype="u8"), ValueError),
 ])

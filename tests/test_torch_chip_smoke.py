@@ -600,3 +600,117 @@ def test_phase18_runs_end_to_end_on_the_cpu_at_a_small_size(monkeypatch, capsys)
     assert all(r["tok_s"] > 0 for r in rates.values())
     assert out.count("[18 serving] a: generate") == 4
     assert "0 of 24 differ" in out and "beams equal" in out and "texts equal" in out
+
+
+def test_phase19_tone_corpus_is_seeded_and_two_classes():
+    a, labels_a = chip_smoke.tone_corpus(np.random.default_rng(0), 6, 2.0, 3.0)
+    b, _ = chip_smoke.tone_corpus(np.random.default_rng(0), 6, 2.0, 3.0)
+    assert sorted(a) == sorted(labels_a) == [f"tone{i:03d}" for i in range(6)]
+    for n in a:
+        assert a[n].dtype == np.int16 and np.array_equal(a[n], b[n])
+        assert 2 * chip_smoke.SR <= len(a[n]) <= 3 * chip_smoke.SR
+    assert {v["emo"] for v in labels_a.values()} == {"neutral", "angry"}
+    # the two classes are the two tones: the spectrum peaks at 200 or 500 Hz
+    for i, n in enumerate(sorted(a)):
+        spec = np.abs(np.fft.rfft(a[n].astype(np.float64)))
+        peak = np.argmax(spec) * chip_smoke.SR / len(a[n])
+        assert abs(peak - (200.0, 500.0)[i % 2]) < 2.0
+
+
+def test_phase19_seeded_checkpoint_reads_back_through_build_e2e_model(tmp_path):
+    """The phase's writer gives the directory ``--pretrain_dir`` names:
+    ``build_e2e_model`` reads its config and weights back without
+    ``transformers``, for each of the three modalities."""
+    import torch
+
+    from mertools_tpu_torch.core.config import Args
+    from mertools_tpu_torch.models import e2e_model as tm
+
+    for name, tiny in (("chinese-hubert-large", "tiny-audio"),
+                       ("chinese-macbert-large", "tiny-text"),
+                       ("clip-vit-large-patch14", "tiny-video")):
+        model, _ = tm.build_e2e_model(Args(e2e_name=tiny))
+        sd = model.init_backbone(torch.Generator().manual_seed(0))
+        chip_smoke.write_seeded_checkpoint(str(tmp_path), name, model.backbone.cfg, sd)
+        back, got = tm.build_e2e_model(Args(e2e_name=name, pretrain_dir=str(tmp_path)))
+        assert back.backbone.cfg == model.backbone.cfg
+        assert sorted(got) == sorted(sd) and all(torch.equal(got[k], v) for k, v in sd.items())
+        back.backbone.load_state_dict(got, strict=True)
+
+
+@pytest.mark.parametrize("bf16,int8,ok", [
+    (1.095e-2, 1.775e-2, True),     # HuBERT-large's readings
+    (6.003e-3, 9.911e-3, True),     # CLIP-L's
+    (1e-2, 3e-2, True),             # at the limit
+    (1e-2, 3.01e-2, False),
+    (1e-3, 2e-2, False),            # int8 far off while bf16 is close
+])
+def test_phase19_int8_gate(bf16, int8, ok):
+    d = {"bf16": bf16, "int8": int8}
+    if ok:
+        assert chip_smoke.int8_gate(d, "19d x") == pytest.approx(int8 / bf16)
+    else:
+        with pytest.raises(RuntimeError, match="19d x UTT int8 vs fp32"):
+            chip_smoke.int8_gate(d, "19d x")
+
+
+def test_phase19_runs_end_to_end_on_the_cpu_at_a_small_size(capsys):
+    """The phase's orchestration on the CPU (no profile or peak memory
+    there) at narrow widths and small sizes: every check it makes passes
+    (losses, the saved backbone, card vs CPU, the read-back and the
+    refusal, the int8 gate and sites) and it prints each part."""
+    import torch
+
+    from mertools_tpu_torch.encoders.bert import BertConfig
+    from mertools_tpu_torch.encoders.vit_clip import CLIPVisionConfig
+    from mertools_tpu_torch.encoders.wav2vec2 import Wav2Vec2Config
+
+    acfg = Wav2Vec2Config(hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
+                          intermediate_size=48, conv_dim=(16,) * 7,
+                          conv_kernel=(10, 3, 3, 3, 3, 2, 2), conv_stride=(5, 2, 2, 2, 2, 2, 2),
+                          num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=2,
+                          feat_extract_norm="layer", do_stable_layer_norm=True, conv_bias=True)
+    tcfg = BertConfig(hidden_size=16, num_hidden_layers=3, num_attention_heads=2,
+                      intermediate_size=32)
+    vcfg = CLIPVisionConfig(hidden_size=16, num_hidden_layers=3, num_attention_heads=2,
+                            intermediate_size=32, image_size=32, patch_size=16,
+                            projection_dim=12)
+    audio = dict(chip_smoke.E2E_AUDIO, clips=12, lo_s=0.3, hi_s=0.5, nseg=2, seglen=3200,
+                 batch=4, fallback_batch=2)
+    chip_smoke.phase_e2e(torch, "cpu", "cpu", acfg, tcfg, vcfg, audio=audio,
+                         text_vision=dict(text_clips=12, video_clips=8, batch=4),
+                         int8_sizes=(4, 2))
+    out = capsys.readouterr().out
+    for part in ("a: main_release", "a: card vs CPU", "b: extract_audio", "d: int8 at"):
+        assert out.count(f"[19 e2e] {part}") == 1, part
+    assert out.count("[19 e2e] c: ") == 2 and out.count("[19 e2e] d: ") == 3
+    assert "leaf shapes do not match the selected model architecture" in out
+
+
+def test_phase17_reads_each_store_once_and_restores_the_reader(tmp_path):
+    from mertools_tpu_torch.data import feature_store
+
+    for n in ("a", "b"):
+        feature_store.write_feature(str(tmp_path / "s"), n, np.full(3, ord(n), np.float32))
+    read = feature_store.read_features
+    with chip_smoke.stores_read_once() as memo:
+        first, dim = feature_store.read_features(str(tmp_path / "s"), ["a", "b"])
+        os.remove(tmp_path / "s" / "a.npy")          # a second read would fail
+        again, _ = feature_store.read_features(str(tmp_path / "s"), ["a", "b"])
+        assert again is first and dim == 3 and len(memo) == 1
+        assert [float(x[0, 0]) for x in first] == [97.0, 98.0]
+    assert feature_store.read_features is read
+
+
+def test_phase19_step_flop_counts_the_backbone_from_its_shapes():
+    """HuBERT-large on 2 s windows: 99 frames a window, ~60.8 GFLOP of
+    transformer products, ~9.8 of the conv frontend and ~1.7 of the
+    positional conv forward; x 3 for a step, 256 windows: ~55.6 TFLOP."""
+    from mertools_tpu_torch.encoders.wav2vec2 import Wav2Vec2Config
+
+    cfg = Wav2Vec2Config.large()
+    one = chip_smoke.e2e_step_flop(cfg, 1, 32000) / 3
+    assert cfg.feat_lengths(32000) == 99
+    layers = 24 * (2 * 99 * (4 * 1024 ** 2 + 2 * 1024 * 4096) + 4 * 99 ** 2 * 1024)
+    assert 70e9 < one < 73e9 and one - layers > 11e9
+    assert round(chip_smoke.e2e_step_flop(cfg, 256, 32000) / 1e12, 2) == 55.55

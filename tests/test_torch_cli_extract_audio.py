@@ -1,7 +1,8 @@
 """The port's extract_audio CLI, mirroring tests/test_cli_extract_audio.py:
 prefetch-chunked loop, idempotent skip, int16 wire, --dataset registry
-resolution, on tiny random weights with --device cpu; and the package's
-promise never to import JAX or the JAX package (chip_smoke.py's too)."""
+resolution, --finetuned_ckpt and --compute_dtype int8, on tiny random
+weights with --device cpu; and the package's promise never to import JAX or
+the JAX package (chip_smoke.py's too)."""
 
 import os
 import subprocess
@@ -73,13 +74,55 @@ def test_extract_audio_cli_end_to_end(tmp_path, monkeypatch):
     (["--model_name", "wav2vec-large"], "wav2vec-1.0"),
     (["--model_name", "emotion2vec_base"], "A9"),
     (["--model_name", "imagebind_huge"], "A9"),
-    (["--model_name", "chinese-hubert-large", "--finetuned_ckpt", "x"],
-     "orbax"),
+    (["--model_name", "whisper-large-v2", "--finetuned_ckpt", "x"],
+     "no Whisper encoder"),
 ])
 def test_unported_branches_exit_naming_roadmap(tmp_path, argv, match):
     with pytest.raises(SystemExit, match=match):
         main(argv + ["--audio_dir", str(tmp_path), "--save_dir", str(tmp_path),
                      "--random_init", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("compute_dtype", ["f32", "int8"])
+def test_finetuned_ckpt_replaces_the_weights(tmp_path, compute_dtype):
+    """``--finetuned_ckpt DIR`` (``config.json`` + ``pytorch_model.bin``,
+    what ``main_release --savemodel`` writes) replaces the tiny random
+    encoder's weights: the UTT files equal an extractor's on DIR's weights,
+    in fp32 and in the int8 mode; DIR of another width is refused with the
+    JAX CLI's architecture message."""
+    import dataclasses
+
+    from mertools_tpu_torch.cli.extract_audio import load_encoder
+    from mertools_tpu_torch.core.checkpoint import write_hf_checkpoint
+    from mertools_tpu_torch.encoders.wav2vec2 import init_params
+    from mertools_tpu_torch.features.audio import AudioExtractor
+    from mertools_tpu_torch.io import wav as wav_io
+
+    wav_dir = tmp_path / "audio"
+    wav_dir.mkdir()
+    for i, n in enumerate((1600, 2400)):
+        _write_wav(wav_dir / f"clip{i}.wav", n, i)
+    cfg, _ = load_encoder("m", None, True, "tiny")
+    ft = init_params(cfg, torch.Generator().manual_seed(7))
+    ckpt = write_hf_checkpoint(str(tmp_path / "fold0_backbone"), cfg.to_config_json(), ft)
+    mode = [] if compute_dtype == "f32" else ["--compute_dtype", compute_dtype]
+    argv = ["--model_name", "chinese-hubert-tiny", "--audio_dir", str(wav_dir),
+            "--random_init", "--encoder_size", "tiny", "--device", "cpu",
+            "--batch_budget_sec", "1", *mode]
+    main(argv + ["--save_dir", str(tmp_path / "out"), "--finetuned_ckpt", ckpt])
+    wavs = {f"clip{i}": wav_io.read_wav_16k(str(wav_dir / f"clip{i}.wav")) for i in range(2)}
+    want = AudioExtractor(cfg, ft, sample_budget=16000, device="cpu",
+                          compute_dtype=None if compute_dtype == "f32" else compute_dtype
+                          ).extract(wavs, level="UTT")
+    for name, w in want.items():
+        got = np.load(tmp_path / "out" / "chinese-hubert-tiny-UTT" / f"{name}.npy")
+        np.testing.assert_array_equal(got, w)
+    narrow = dataclasses.replace(cfg, hidden_size=32)
+    bad = write_hf_checkpoint(str(tmp_path / "narrow"), narrow.to_config_json(),
+                              init_params(narrow, torch.Generator().manual_seed(7)))
+    with pytest.raises(ValueError, match="leaf shapes do not match the selected model "
+                                         "architecture"):
+        main(argv + ["--save_dir", str(tmp_path / "bad"), "--finetuned_ckpt", bad])
 
 
 def test_extract_audio_cli_whisper(tmp_path, capsys):
@@ -182,11 +225,13 @@ def test_dataset_missing_from_registry_exits(tmp_path, monkeypatch):
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mertools_tpu")
 # the generation and serving slice's modules, walked like every other
+# modules the walk must find by name: the serving slice's and the e2e slice's
 SERVING = tuple(f"mertools_tpu_torch.{m}" for m in (
     "ops.quant", "mllm.generate", "mllm.beam", "mllm.serve", "mllm.chat",
     "mllm.convert_affectgpt", "io.xlsx", "ops.ov_metrics", "cli.inference_mllm",
     "cli.evaluation", "cli.main_ov", "cli.parity_check", "cli.translate",
-    "cli.ovlabel_extraction"))
+    "cli.ovlabel_extraction", "models.e2e_model", "data.e2e_dataset", "core.trees",
+    "ops.align"))
 
 
 def test_port_never_imports_jax():

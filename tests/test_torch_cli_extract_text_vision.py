@@ -2,8 +2,9 @@
 on the same checkpoint directories, written by ``transformers``'
 ``save_pretrained`` (a BertForMaskedLM of 4 layers with a BertTokenizer
 from a temporary vocab.txt; a CLIPVisionModelWithProjection of 2 layers at
-56 px): the ``.npy`` files agree within 1e-4 (fp32, ``--device cpu``); the
-branches not ported exit naming their ROADMAP item."""
+56 px): the ``.npy`` files agree within 1e-4 (fp32, ``--device cpu``);
+``--finetuned_ckpt`` and vision's ``--compute_dtype int8``; the branches not
+ported exit naming their ROADMAP item."""
 
 import csv
 import json
@@ -130,19 +131,106 @@ def test_extract_text_exits_naming_the_roadmap_item(tmp_path, model_type, item):
                   "--device", "cpu"])
 
 
-def test_extract_text_finetuned_ckpt_exits_naming_a17(tmp_path):
-    with pytest.raises(SystemExit, match="A17"):
-        tet.main(["--model_name", "m", "--trans_path", "t.csv", "--save_dir",
-                  str(tmp_path), "--finetuned_ckpt", str(tmp_path)])
+def _finetuned(src, dst, seed: int, load_hf_state_dict, layers: str):
+    """A fine-tuned stand-in of the checkpoint ``src``: its config and its
+    weights moved by seeded noise, written as ``main_release --savemodel``
+    writes a backbone; and one with the last layer dropped."""
+    from mertools_tpu_torch.core.checkpoint import (read_hf_config, read_hf_weights,
+                                                    write_hf_checkpoint)
+
+    g = torch.Generator().manual_seed(seed)
+    sd = load_hf_state_dict(read_hf_weights(str(src)))
+    moved = {k: v + 0.05 * torch.randn(v.shape, generator=g) for k, v in sd.items()}
+    cfg = read_hf_config(str(src))
+    last = max(int(k.split(layers)[1].split(".")[0]) for k in sd if layers in k)
+    shallow = {k: v for k, v in sd.items() if f"{layers}{last}." not in k}
+    return (write_hf_checkpoint(str(dst / "fold0_backbone"), cfg, moved),
+            write_hf_checkpoint(str(dst / "shallow"), cfg, shallow))
+
+
+def test_extract_text_finetuned_ckpt_exits_naming_a17(bert_dir, tmp_path):
+    """(Once an exit naming A17.) ``--finetuned_ckpt`` replaces the BERT
+    weights: the files equal the CLI's on a copy of the checkpoint holding
+    the fine-tuned weights; a checkpoint one layer short is refused with
+    the JAX CLI's architecture message."""
+    import shutil
+
+    from mertools_tpu_torch.encoders.bert import load_hf_state_dict
+
+    _transcripts(tmp_path / "trans.csv")
+    ft, shallow = _finetuned(bert_dir, tmp_path, 3, load_hf_state_dict, "encoder.layer.")
+    merged = tmp_path / "pre" / bert_dir.name
+    shutil.copytree(bert_dir, merged)
+    for f in merged.glob("*.safetensors"):
+        f.unlink()
+    shutil.copy(os.path.join(ft, "pytorch_model.bin"), merged / "pytorch_model.bin")
+    flags = ["--model_name", bert_dir.name, "--trans_path", str(tmp_path / "trans.csv"),
+             "--device", "cpu"]
+    tet.main(flags + ["--pretrain_dir", str(bert_dir.parent), "--finetuned_ckpt", ft,
+                      "--save_dir", str(tmp_path / "ft")])
+    tet.main(flags + ["--pretrain_dir", str(merged.parent), "--save_dir",
+                      str(tmp_path / "merged")])
+    sub = f"{bert_dir.name}-UTT"
+    out, ref = _read(tmp_path / "ft" / sub), _read(tmp_path / "merged" / sub)
+    assert sorted(out) == sorted(ref)
+    for n in ref:
+        np.testing.assert_array_equal(out[n], ref[n])
+    with pytest.raises(ValueError, match="checkpoint tree does not match the selected "
+                                         "model architecture"):
+        tet.main(flags + ["--pretrain_dir", str(bert_dir.parent), "--finetuned_ckpt",
+                          shallow, "--save_dir", str(tmp_path / "bad")])
+
+
+@pytest.mark.parametrize("extra", [["--compute_dtype", "int8"], ["--finetuned_ckpt"]],
+                         ids=["int8", "finetuned"])
+def test_extract_vision_int8_and_finetuned_ckpt(clip_dir, tmp_path, extra):
+    """``--compute_dtype int8`` against the JAX CLI's int8 mode (UTT within
+    2e-2 of max|jax|: two bf16 computations that round apart); and
+    ``--finetuned_ckpt`` against the library on the fine-tuned weights,
+    with a checkpoint one layer short refused."""
+    from mertools_tpu_torch.core.checkpoint import read_hf_config, read_hf_weights
+    from mertools_tpu_torch.encoders.vit_clip import CLIPVisionConfig, load_hf_state_dict
+    from mertools_tpu_torch.features.vision import VisionExtractor
+
+    faces = tmp_path / "faces"
+    faces.mkdir()
+    rng = np.random.default_rng(2)
+    clips = {f"clip{i}": rng.integers(0, 256, size=(t, 112, 112, 3)).astype(np.uint8)
+             for i, t in enumerate((3, 7))}
+    for n, c in clips.items():
+        np.save(faces / f"{n}.npy", c)
+    flags = ["--model_name", clip_dir.name, "--pretrain_dir", str(clip_dir.parent),
+             "--face_dir", str(faces)]
+    sub = f"{clip_dir.name}-UTT"
+    if extra[0] == "--compute_dtype":
+        from mertools_tpu.cli import extract_vision as jev
+
+        jev.main(flags + extra + ["--save_dir", str(tmp_path / "jax")])
+        tev.main(flags + extra + ["--save_dir", str(tmp_path / "port"), "--device", "cpu"])
+        out, ref = _read(tmp_path / "port" / sub), _read(tmp_path / "jax" / sub)
+        assert sorted(out) == sorted(ref)
+        for n in ref:
+            assert np.abs(out[n] - ref[n]).max() <= 2e-2 * np.abs(ref[n]).max()
+        return
+    ft, shallow = _finetuned(clip_dir, tmp_path, 4, load_hf_state_dict, "encoder.layers.")
+    tev.main(flags + ["--finetuned_ckpt", ft, "--save_dir", str(tmp_path / "ft"),
+                      "--device", "cpu"])
+    cfg = CLIPVisionConfig.from_hf(read_hf_config(str(clip_dir)))
+    want = VisionExtractor(cfg, load_hf_state_dict(read_hf_weights(ft)),
+                           device="cpu").extract(clips, level="UTT")
+    out = _read(tmp_path / "ft" / sub)
+    for n in want:
+        np.testing.assert_array_equal(out[n], want[n])
+    with pytest.raises(ValueError, match="checkpoint tree does not match"):
+        tev.main(flags + ["--finetuned_ckpt", shallow, "--save_dir", str(tmp_path / "x"),
+                          "--device", "cpu"])
 
 
 @pytest.mark.parametrize("name,extra,item", [
     ("videomae-base", [], "A9"), ("dinov2-large", [], "A9"),
     ("data2vec-vision-base", [], "A9"), ("eva-clip-g", [], "A9"),
     ("siglip-base", [], "A9"), ("emonet", [], "A9"), ("manet", [], "A9"),
-    ("resnet50-ferplus", [], "A9"), ("senet50-msceleb", [], "A9"),
-    ("clip-vit-large-patch14", ["--compute_dtype", "int8"], "A17"),
-    ("clip-vit-large-patch14", ["--finetuned_ckpt", "x"], "A17")])
+    ("resnet50-ferplus", [], "A9"), ("senet50-msceleb", [], "A9")])
 def test_extract_vision_exits_naming_the_roadmap_item(tmp_path, name, extra, item):
     with pytest.raises(SystemExit, match=item):
         tev.main(["--model_name", name, "--face_dir", str(tmp_path),

@@ -116,15 +116,14 @@ def test_main_release_with_random_hyperparameters(synth_store, tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (["--model=tfn"], None),  # ported: trains
-    (["--model=e2e_model"], "e2e fine-tuning .*ROADMAP A7"),
-    (["--model=videomae_pretrain"], "ROADMAP A7"),
+    (["--model=e2e_model"], "--model=e2e_model needs --e2e_name"),
+    (["--model=videomae_pretrain"], "ROADMAP A7b"),
     (["--fusion_topn=2"], "--fusion_topn trains --model=attention_topn"),
-    (["--savemodel"], "ROADMAP A7, A17"),
 ])
 def test_what_is_not_ported_exits_naming_its_roadmap_item(tmp_path, request, extra, match):
-    """The raw-input models and --savemodel still exit naming their ROADMAP
-    item; --fusion_topn with another model exits naming the model it
-    trains; the rest of the zoo (here TFN) runs."""
+    """videomae_pretrain still exits naming its ROADMAP item; e2e_model
+    without an encoder name exits; --fusion_topn with another model exits
+    naming the model it trains; the rest of the zoo (here TFN) runs."""
     root = request.getfixturevalue("synth_store") if match is None else tmp_path
     flags = [f for f in _flags(root, tmp_path / "x") if f != "--model=attention"]
     if not any(e.startswith("--model") for e in extra):
@@ -144,3 +143,104 @@ def test_main_release_defaults_to_the_card(synth_store, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main_release.main(_flags(synth_store, tmp_path / "c") + extra)
     assert not os.path.exists(f"{tmp_path / 'c'}-trimodal")
+
+
+def _tone_corpus(root, n: int = 10):
+    """tests/test_e2e_model.py's tone corpus: 0.5 s wavs of 200 / 500 Hz
+    (two separable classes) and a MER2025 label archive."""
+    from mertools_tpu_torch.io import wav as wav_io
+
+    (root / "audio").mkdir()
+    t = np.arange(8000) / 16000.0
+    corpus = {}
+    for i in range(n):
+        name = f"c{i:02d}"
+        wav_io.write_wav(str(root / "audio" / f"{name}.wav"),
+                         0.4 * np.sin(2 * np.pi * (200.0, 500.0)[i % 2] * t))
+        corpus[name] = {"emo": EMOS_MER[i % 2], "val": 0.0}
+    labels.write_label_archive(str(root / "labels.npz"), {"train": corpus})
+    return {n: wav_io.read_wav_16k(str(root / "audio" / f"{n}.wav")) for n in corpus}
+
+
+def test_e2e_savemodel_round_trips_through_extract_audio(tmp_path, capsys):
+    """``--model=e2e_model --savemodel`` on a checkpoint directory of the
+    chinese-hubert-large name (a narrow encoder: the directory decides the
+    architecture) writes ``config.json`` + ``pytorch_model.bin`` to
+    ``{save_root}/model/fold{i}_backbone``, the JAX CLI's path for the same
+    flags (its run_cv saves under ``args.save_root``); ``extract_audio
+    --finetuned_ckpt`` then gives the saved encoder's features, and refuses a
+    checkpoint of another width or depth with the architecture message."""
+    import dataclasses
+
+    from mertools_tpu_torch.cli import extract_audio
+    from mertools_tpu_torch.core.checkpoint import read_hf_weights, write_hf_checkpoint
+    from mertools_tpu_torch.encoders import wav2vec2 as tw
+    from mertools_tpu_torch.features.audio import AudioExtractor
+    from mertools_tpu_torch.models.e2e_model import _tiny_config
+
+    wavs = _tone_corpus(tmp_path)
+    cfg = _tiny_config("audio")
+    pre = tmp_path / "pretrain"
+    write_hf_checkpoint(str(pre / "chinese-hubert-large"), cfg.to_config_json(),
+                        tw.init_params(cfg, torch.Generator().manual_seed(0)))
+    save = tmp_path / "saved"
+    result = main_release.main([
+        "--dataset=MER2025", "--model=e2e_model", "--e2e_name=chinese-hubert-large",
+        f"--pretrain_dir={pre}", f"--raw_audio_root={tmp_path / 'audio'}", "--lr=1e-3",
+        "--batch_size=4", "--epochs=2", "--seed=0", "--e2e_nseg=2", "--e2e_seglen=2000",
+        "--savemodel", f"--save_root={save}", f"--features_root={tmp_path}",
+        f"--label_path={tmp_path / 'labels.npz'}", "--device", "cpu"])
+    assert len(result.folds) == 5 and np.isfinite(result.cv["emofscore"])
+    for i in range(5):
+        fold = save / "model" / f"fold{i}_backbone"
+        assert sorted(os.listdir(fold)) == ["config.json", "pytorch_model.bin"]
+    made = os.listdir(f"{save}-others/result")
+    assert len(made) == 1 and "model:e2e_model+utt+chinese-hubert-large_" in made[0]
+    assert "_e2e_backbone_params" not in np.load(
+        f"{save}-others/result/{made[0]}", allow_pickle=True)["args"].item()
+    fold0 = save / "model" / "fold0_backbone"
+    saved = tw.load_hf_state_dict(read_hf_weights(str(fold0)))
+    assert tw.Wav2Vec2Config.from_config_json(
+        __import__("json").loads((fold0 / "config.json").read_text())) == cfg
+
+    argv = ["--model_name", "chinese-hubert-large", "--pretrain_dir", str(pre),
+            "--audio_dir", str(tmp_path / "audio"), "--batch_budget_sec", "1",
+            "--device", "cpu"]
+    extract_audio.main(argv + ["--save_dir", str(tmp_path / "ft"),
+                               "--finetuned_ckpt", str(fold0)])
+    assert "loaded fine-tuned backbone from" in capsys.readouterr().out
+    got = {n: np.load(tmp_path / "ft" / "chinese-hubert-large-UTT" / f"{n}.npy")
+           for n in wavs}
+    want = AudioExtractor(cfg, saved, sample_budget=16000, device="cpu").extract(
+        wavs, level="UTT")
+    base = AudioExtractor(cfg, read_hf_weights(str(pre / "chinese-hubert-large")),
+                          sample_budget=16000, device="cpu").extract(wavs, level="UTT")
+    for n in wavs:
+        assert np.abs(got[n] - want[n]).max() <= 1e-6 * np.abs(want[n]).max()
+        assert np.abs(base[n] - want[n]).max() > 1e-4 * np.abs(want[n]).max()
+
+    wide = dataclasses.replace(cfg, hidden_size=24, intermediate_size=48)
+    deep = dataclasses.replace(cfg, num_hidden_layers=5)
+    for other, match in ((wide, "leaf shapes do not match the selected model architecture"),
+                         (deep, "checkpoint tree does not match the selected model "
+                                "architecture")):
+        bad = write_hf_checkpoint(str(tmp_path / f"bad{other.num_hidden_layers}"),
+                                  other.to_config_json(),
+                                  tw.init_params(other, torch.Generator().manual_seed(1)))
+        with pytest.raises(ValueError, match=match):
+            extract_audio.main(argv + ["--save_dir", str(tmp_path / "x"),
+                                       "--finetuned_ckpt", bad])
+
+
+def test_savemodel_on_a_fusion_model_saves_nothing(synth_store, tmp_path, capsys):
+    """A model without a backbone has nothing to save (the JAX trainer's
+    branch is guarded by ``"backbone" in state.params``); the CLI says so
+    in one line and trains as without the flag."""
+    save = tmp_path / "s"
+    result = main_release.main(_flags(synth_store, save, "--savemodel", "--hidden_dim=8",
+                                      "--epochs=1", "--device", "cpu"))
+    assert result.test_results["test1"]["emoprobs"].shape == (12, 6)
+    out = capsys.readouterr().out
+    assert out.count("--savemodel: --model=attention has no fine-tuned backbone; "
+                     "nothing is saved") == 1
+    assert not os.path.exists(save / "model")

@@ -271,13 +271,22 @@ def test_random_select_draws_as_the_jax_package():
 
 
 def test_loader_names_a7_for_top_n_and_raw_inputs(tmp_path):
-    """The raw-input models still exit naming ROADMAP A7; under
-    --fusion_topn the loader builds the top-N dataset and records its
-    widths in ``feat_dims``."""
-    for kw in ({"model": "e2e_model"}, {"model": "videomae_pretrain"}):
-        loader = t_loaders.MER2023Loader(Args(kw))
-        with pytest.raises(SystemExit, match="ROADMAP A7"):
-            loader._build(["a"], np.zeros(1), np.zeros(1))
+    """videomae_pretrain's raw videos still exit naming ROADMAP A7b;
+    e2e_model's build an ``E2EDataset`` (here of audio, the JAX loader's
+    ``--e2e_nseg`` / ``--e2e_seglen`` defaults); under --fusion_topn the
+    loader builds the top-N dataset and records its widths in
+    ``feat_dims``."""
+    from mertools_tpu_torch.io import wav as wav_io
+
+    loader = t_loaders.MER2023Loader(Args({"model": "videomae_pretrain"}))
+    with pytest.raises(SystemExit, match="ROADMAP A7b"):
+        loader._build(["a"], np.zeros(1), np.zeros(1))
+    wav_io.write_wav(str(tmp_path / "a.wav"), np.sin(np.arange(40000) / 7.0) * 0.3)
+    kw = {"model": "e2e_model", "e2e_name": "tiny-audio", "raw_audio_root": str(tmp_path)}
+    got = t_loaders.MER2023Loader(Args(kw))._build(["a"], np.zeros(1), np.zeros(1))
+    ref = j_loaders.MER2023Loader(JArgs(kw))._build(["a"], np.zeros(1), np.zeros(1))
+    assert got.data["audios"].shape == (1, 8, 32000)
+    np.testing.assert_array_equal(got.data["audios"], ref.data["audios"])
     from mertools_tpu_torch.core.globals_mer import feature_dir_name
     from mertools_tpu_torch.data.dataset import TopNFeatureDataset
 

@@ -152,8 +152,8 @@ def test_dropout_draws_from_its_generator():
 
 
 def test_get_model_builds_attention_and_names_a7_for_the_rest():
-    """Every registered zoo model builds; a raw-input model exits naming
-    ROADMAP A7."""
+    """Every registered zoo model builds; videomae_pretrain exits naming
+    ROADMAP A7b; e2e_model builds its raw-input model (no widths)."""
     args = Args(model="attention", hidden_dim=8, dropout=0.0, feat_type="frm_align",
                 output_dim1=4, output_dim2=0, lr=1e-3)
     m = get_model(args, (5, 6, 7))
@@ -161,5 +161,7 @@ def test_get_model_builds_attention_and_names_a7_for_the_rest():
     assert m.heads.fc_out_2 is None and m.heads.fc_out_1.out_features == 4
     tfn = get_model(Args(model="tfn", hidden_dim=4), (5, 6, 7))
     assert tfn.post_fusion_layer_1.in_features == 5 ** 3
-    with pytest.raises(SystemExit, match="A7"):
-        get_model(Args(model="e2e_model"), (5, 6, 7))
+    with pytest.raises(SystemExit, match="A7b"):
+        get_model(Args(model="videomae_pretrain"), (5, 6, 7))
+    e2e = get_model(Args(model="e2e_model", e2e_name="tiny-text", hidden_dim=8), ())
+    assert e2e.cfg.modality == "text" and e2e.heads.fc_out_1.in_features == 8

@@ -137,7 +137,8 @@ def test_resample_frames_uniform_matches_jax():
 
 def test_extractors_default_to_the_card(monkeypatch):
     """No device: cuda, which raises on a host without a card instead of
-    falling back to the CPU; int8 names its ROADMAP item."""
+    falling back to the CPU, in the int8 mode too (which builds on the CPU
+    when asked); an unknown mode raises."""
     _, _, bcfg, bsd = _bert()
     _, _, ccfg, csd = _clip()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -145,8 +146,12 @@ def test_extractors_default_to_the_card(monkeypatch):
         tt.TextExtractor(bcfg, bsd)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tvis.VisionExtractor(ccfg, csd)
-    with pytest.raises(NotImplementedError, match="A17"):
-        tvis.VisionExtractor(ccfg, csd, compute_dtype="int8", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tvis.VisionExtractor(ccfg, csd, compute_dtype="int8")
+    assert tvis.VisionExtractor(ccfg, csd, compute_dtype="int8", device="cpu")._dtype == (
+        torch.bfloat16)
+    with pytest.raises(ValueError, match="compute_dtype 'int4'"):
+        tvis.VisionExtractor(ccfg, csd, compute_dtype="int4", device="cpu")
     with pytest.raises(ValueError, match="B1"):
         tvis.VisionExtractor(dataclasses.replace(ccfg, tome_r=2), csd,
                              flash=True, device="cpu")
