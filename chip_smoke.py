@@ -14,8 +14,9 @@ heads, vocab 32000), the MERBench fusion trainer (attention fusion, hidden
 CLIP-ViT-L/14 vision features (224 px, patch 14, 257 tokens, hidden 1024,
 24 layers, projection 768), MER2023's trimodal pipeline, the face
 frontend that makes its face stores from frames, AffectGPT generation
-and serving at TinyLlama-1.1B width, and e2e fine-tuning of HuBERT-large
-with the int8 extraction mode — and checks them:
+and serving at TinyLlama-1.1B width, e2e fine-tuning of HuBERT-large with
+the int8 extraction mode, and the audio encoder zoo (VGGish, wav2vec 1.0,
+emotion2vec base, ImageBind-huge audio) — and checks them:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
@@ -154,6 +155,20 @@ with the int8 extraction mode — and checks them:
    scales and products card against CPU at 2 layers. It launches none of
    the port's kernels (counted): the JAX e2e encoders run without flash
    attention and the int8 product is an XLA dot.
+20. the audio encoder zoo behind ``extract_audio`` at published width with
+   seeded weights: VGGish, wav2vec 1.0 (``Wav2Vec1Config()``), emotion2vec
+   base and ImageBind-huge audio (Kaldi fbank): (a) each extractor on
+   phase 3's 64 clips plus 4 of 20-45 s, UTT and FRA: clips/s, peak memory,
+   a profiled batch's idle share, FRA rows by the trim rules; (b) the card
+   against the CPU from the same weights (emotion2vec 1 + 1 blocks,
+   ImageBind 2 blocks) on 4 clips; (c) rows of a ragged bucketed batch
+   against each clip alone, for emotion2vec and wav2vec 1.0; (d)
+   ``extract_audio`` on a reference-layout checkpoint file of each family
+   (a torchvggish ``.pt``, a fairseq ``.pt`` writing the z and c stores, a
+   funasr ``.pt`` with EMA keys, an ``imagebind_huge.pth``) against the
+   extractor on the same weights. It launches none of the port's kernels
+   (counted): the JAX zoo's attention is a dense einsum and its spectra
+   ``jnp.fft``.
 
     python3 chip_smoke.py --fusion-zoo
 
@@ -165,7 +180,11 @@ runs phase 18 alone (its kernel counts included),
 
     python3 chip_smoke.py --e2e
 
-runs phase 19 alone (its kernel counts included), and
+runs phase 19 alone (its kernel counts included),
+
+    python3 chip_smoke.py --audio-zoo
+
+runs phase 20 alone (its kernel counts included), and
 
     python3 chip_smoke.py --b3-times DIR
 
@@ -190,6 +209,7 @@ import csv
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import re
 import subprocess
@@ -2914,11 +2934,29 @@ def quiet(fn, *args):
 
 
 def write_store(root: str, names, rows) -> None:
-    """One ``.npy`` a clip under ``root`` (the reference layout)."""
+    """One ``.npy`` a clip under ``root`` (the reference layout), written
+    by 8 threads: each write waits on the card machine's 9p file system
+    with the GIL released."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mertools_tpu_torch.data import feature_store
 
-    for name, row in zip(names, rows):
-        feature_store.write_feature(root, name, row)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda nr: feature_store.write_feature(root, *nr), zip(names, rows)))
+
+
+def write_topn_stores(fdir: str, names, emos, specs) -> None:
+    """Phase 17c's UTT stores under ``fdir`` for ``specs`` of (encoder,
+    width, seed), each drawn by ``fusion_features`` from its own seed (the
+    parent draws the same rows); run in a child process."""
+    from mertools_tpu_torch.core.globals_mer import feature_dir_name
+
+    t0 = time.perf_counter()
+    for f, dim, seed in specs:
+        write_store(os.path.join(fdir, feature_dir_name(f, "UTT")), names,
+                    fusion_features(np.random.default_rng(seed), emos, dim))
+    print(f"[17 zoo] c: a child process wrote top-N's {len(specs)} stores of "
+          f"{len(names)} clips in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def frm_features(rng, emos, dim: int, lo: int, hi: int, scale: int = FRM_SCALE):
@@ -3183,6 +3221,15 @@ def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
               f"{', '.join(f'{f} ({dim})' for f, dim in FUSION_FEATURES)}; FRA "
               f"{', '.join(f'{f} ({dim}, {lo}-{hi} frames / {FRM_SCALE})' for f, dim, lo, hi in FRM_FEATURES)}"
               f", {frm_gb:.2f} GB; {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        # (c)'s stores that (a) has not written: a child process writes them
+        # while (a)-(b) train (spawned, as this process runs CUDA and
+        # threads; a daemon, so a failing phase stops it)
+        fnames = TopNFeatureDataset.feature_names(6, "AVT")
+        specs = [(f, TOPN_WIDTHS[f], 170 + i) for i, f in enumerate(fnames)
+                 if feature_dir_name(f, "UTT") not in utt]
+        writer = multiprocessing.get_context("spawn").Process(
+            target=write_topn_stores, args=(fdir, names, all_emos, specs), daemon=True)
+        writer.start()
 
         runs = [(m, "utt") for m in ZOO_UTT] + [(m, "frm_align") for m in ZOO_FRM]
         runs.append(("mult", "frm_unalign"))
@@ -3210,13 +3257,16 @@ def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
             record(f"{model} {feat_type}", res, prof, group)
             torch.cuda.empty_cache()
 
-        # (c) top-N: 18 UTT stores named by the top 6 of each rank list
+        # (c) top-N: 18 UTT stores named by the top 6 of each rank list;
+        # three of them are (a)'s HuBERT, MacBERT and CLIP stores at the
+        # same widths, the others the child's
         t0 = time.perf_counter()
-        fnames = TopNFeatureDataset.feature_names(6, "AVT")
-        topn = {f: fusion_features(rng, all_emos, TOPN_WIDTHS[f]) for f in fnames}
-        for f, x in topn.items():
-            write_store(os.path.join(fdir, feature_dir_name(f, "UTT")), names, x)
-        t_write = time.perf_counter() - t0
+        writer.join()
+        check(writer.exitcode == 0, f"17 top-N's store writer exited {writer.exitcode}")
+        t_wait = time.perf_counter() - t0
+        topn = {f: utt.get(feature_dir_name(f, "UTT")) for f in fnames}
+        topn.update({f: fusion_features(np.random.default_rng(seed), all_emos, dim)
+                     for f, dim, seed in specs})
         ep, nf = epochs["topn"], folds["topn"]
         with mer2023_folds(nf):
             res, secs, prof = zoo_release(torch, [
@@ -3240,10 +3290,11 @@ def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
         t0 = time.perf_counter()
         worst = {}
         d_grad, d_eval = zoo_card_vs_cpu(torch, "attention_topn", hp, sets, dev, "utt", worst)
-        widths = [TOPN_WIDTHS[f] for f in fnames]
+        widths = [topn[f].shape[1] for f in fnames]
         print(zoo_line(f"c: top-N --fusion_topn=6 AVT attention_topn (hidden "
                        f"{hp['hidden_dim']}) on 18 UTT stores {dict(zip(fnames, widths))} "
-                       f"({sum(widths)} floats a clip; written in {t_write:.1f} s)",
+                       f"({sum(widths)} floats a clip; the {len(specs)} not in (a) written "
+                       f"by a child process during (a)-(b), {t_wait:.1f} s waited for it)",
                        res, secs, prof, n_train, ep, nf, d_grad, d_eval, card,
                        time.perf_counter() - t0, worst), flush=True)
         gates.append(("top-N", d_grad, d_eval, worst))
@@ -4368,6 +4419,298 @@ def e2e_phase(torch, wrappers, card) -> None:
     print(f"[19 e2e] kernel launches in phase 19: {counts} [{card}]", flush=True)
 
 
+# ------------------------------------------------- the audio zoo (phase 20)
+ZOO_FAMILIES = ("vggish", "wav2vec1", "emotion2vec", "imagebind")
+# reduced depth of the card-vs-CPU legs (VGGish and wav2vec 1.0 whole)
+ZOO_CHECK_DEPTH = {"emotion2vec": dict(prenet_depth=1, depth=1),
+                   "imagebind": dict(num_blocks=2)}
+ZOO_CPU_TOL = 3e-4     # card vs CPU, same weights: max |card - cpu| / max |cpu|
+ZOO_RAGGED_TOL = 5e-5  # a ragged batch vs each clip alone, on the card
+ZOO_CLI_TOL = 1e-5     # a CLI store vs the extractor on the same weights
+ZOO_PASSES = 3         # timed passes a level; the rate printed is their median
+# the CLI's checkpoint files: emotion2vec at 1 + 1 blocks; the other
+# loaders fix their configs (ImageBind's huge, 12 blocks)
+ZOO_CLI_DEPTH = {"emotion2vec": dict(prenet_depth=1, depth=1)}
+ZOO_CLI_NAMES = {"vggish": "vggish", "wav2vec1": "wav2vec-large",
+                 "emotion2vec": "emotion2vec_base", "imagebind": "imagebind_huge"}
+
+
+def zoo_clips():
+    """Phase 3's 64 clips of 2-10 s (PCM16, seed 0) and 4 of 20-45 s (seed
+    20), so the whole-clip buckets above 10 s are reached: name -> PCM16."""
+    _, wavs16, _ = bench_clips()
+    rng = np.random.default_rng(20)
+    for i, L in enumerate(rng.integers(20 * SR, 45 * SR, size=4)):
+        wavs16[f"long{i}"] = (rng.normal(size=int(L)) * 3000).astype(np.int16)
+    return wavs16
+
+
+def zoo_model(family: str, dev, seed: int, **fields):
+    """(config, seeded state dict on ``dev``) of a family at its published
+    width: VGGish, ``Wav2Vec1Config()``, emotion2vec base and ImageBind-huge
+    audio, unless ``fields`` replace some of the config's."""
+    import torch
+
+    from mertools_tpu_torch.encoders import audio_zoo as z
+    from mertools_tpu_torch.encoders import emotion2vec as e2v
+    from mertools_tpu_torch.encoders import imagebind as ib
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if family == "vggish":
+        return None, z.vggish_init_params(gen)
+    if family == "wav2vec1":
+        cfg = dataclasses.replace(z.Wav2Vec1Config(), **fields)
+        return cfg, z.wav2vec1_init_params(cfg, gen)
+    if family == "emotion2vec":
+        cfg = dataclasses.replace(e2v.Emotion2VecConfig(), **fields)
+        return cfg, e2v.init_params(cfg, gen)
+    cfg = dataclasses.replace(ib.ImageBindAudioConfig(), **fields)
+    return cfg, ib.init_params(cfg, gen)
+
+
+def zoo_extractor(family: str, cfg, sd: dict, dev):
+    from mertools_tpu_torch.features import audio as ta
+
+    if family == "vggish":
+        return ta.VGGishExtractor(sd, device=dev)
+    if family == "wav2vec1":
+        return ta.Wav2Vec1Extractor(sd, cfg, device=dev)
+    if family == "emotion2vec":
+        return ta.Emotion2VecExtractor(sd, cfg, device=dev)
+    return ta.ImageBindAudioExtractor(cfg, sd, device=dev)
+
+
+def zoo_extract(ex, wavs: dict, level: str) -> dict:
+    """name -> features, with wav2vec 1.0's z and c under ``name/z`` and
+    ``name/c``."""
+    if hasattr(ex, "extract_zc"):
+        zs, cs = ex.extract_zc(wavs, level)
+        return {**{f"{n}/z": f for n, f in zs.items()}, **{f"{n}/c": f for n, f in cs.items()}}
+    return ex.extract(wavs, level)
+
+
+def kept_rows(family: str, n: int, cfg) -> int:
+    """FRA rows a clip of ``n`` samples keeps, by the JAX trim rules, after
+    truncation to the last whole-clip bucket (ImageBind: its 8 clips)."""
+    from mertools_tpu_torch.encoders import audio_zoo as z
+    from mertools_tpu_torch.encoders import emotion2vec as e2v
+    from mertools_tpu_torch.features.audio import WHOLECLIP_BUCKETS
+
+    n = min(n, WHOLECLIP_BUCKETS[-1])
+    if family == "vggish":
+        return z.vggish_patches(n)
+    if family == "wav2vec1":
+        return int(z.w2v1_out_lengths(n, cfg))
+    if family == "emotion2vec":
+        return max(int(e2v.out_lengths(n, cfg)), 1)
+    return 8
+
+
+def zoo_gate(value: float, limit: float, what: str) -> float:
+    check(value <= limit, f"{what} {value:.3e} over {limit:.0e}")
+    return value
+
+
+def write_zoo_checkpoint(d: str, family: str, sd: dict) -> str:
+    """The reference's checkpoint file of a family under ``d``, named as
+    the CLI looks for it: a torchvggish state dict (``vggish.pt``); a
+    fairseq ``wav2vec-large.pt`` (``args`` and ``model``); a funasr
+    ``emotion2vec_base.pt`` (``cfg`` and ``model``, with an EMA teacher's
+    and a decoder's keys the loader leaves out); an ``imagebind_huge.pth``
+    with another modality's key and the postprocessor's logit scale."""
+    import torch
+
+    sd = {k: v.detach().cpu() for k, v in sd.items()}
+    path = os.path.join(d, ZOO_CLI_NAMES[family] + (".pth" if family == "imagebind" else ".pt"))
+    if family == "wav2vec1":
+        blob = {"args": argparse.Namespace(arch="wav2vec"), "model": sd}
+    elif family == "emotion2vec":
+        teacher = {f"_ema.{k}": v for k, v in sd.items() if k.startswith("blocks.")}
+        blob = {"cfg": {"model": {"_name": "data2vec_multi"}}, "model": {
+            **sd, **teacher, "modality_encoders.AUDIO.decoder.proj.weight": torch.zeros(4, 4)}}
+    elif family == "imagebind":
+        blob = {**sd, "modality_trunks.vision.blocks.0.attn.bias_k": torch.zeros(1, 1, 4),
+                "modality_postprocessors.audio.1.log_logit_scale": torch.tensor(3.0)}
+    else:
+        blob = sd
+    torch.save(blob, path)
+    return path
+
+
+def zoo_profile(torch, ex, wavs: dict, dev) -> str:
+    """One batch's profile (the first ``batch_size`` clips, or 4 videos) as
+    phases 6, 7 and 10 print it; "not measured" off the card."""
+    if torch.device(dev).type != "cuda":
+        return "profile not measured (no card)"
+    n = getattr(ex, "batch_size", getattr(ex, "batch_clips", 8))
+    batch = dict(list(wavs.items())[:n])
+    wall, *prof = device_profile(torch, lambda: zoo_extract(ex, batch, "UTT"))
+    return f"profile of one UTT batch of {n}: wall {wall:.1f} ms, {profile_line(*prof, wall)}"
+
+
+def cut_depth(family: str, cfg, sd: dict, depth: dict):
+    """(config, state dict) of a model's first layers: ``depth`` replaces
+    the config's depth fields, the state dict keeps the cut model's keys."""
+    import torch
+
+    from mertools_tpu_torch.encoders import emotion2vec as e2v
+    from mertools_tpu_torch.encoders import imagebind as ib
+
+    if not depth:
+        return cfg, sd
+    cfg = dataclasses.replace(cfg, **depth)
+    with torch.device("meta"):
+        model = e2v.Emotion2Vec(cfg) if family == "emotion2vec" else ib.ImageBindAudioEncoder(cfg)
+    return cfg, {k: sd[k] for k in model.state_dict()}
+
+
+def zoo_alone(torch, family: str, ex, wav: np.ndarray, dev) -> dict:
+    """A clip run alone through an extractor's module, unpadded: part ->
+    (rows, C) (wav2vec 1.0 unmasked, as the JAX package runs a clip)."""
+    w = torch.from_numpy(wav).to(dev)[None]
+    with torch.inference_mode():
+        if family == "wav2vec1":
+            res = ex.model(w)
+            return {"/z": res["z"][0].cpu().numpy(), "/c": res["c"][0].cpu().numpy()}
+        return {"": ex.model(w, torch.tensor([w.shape[1]], device=dev))[0][0].cpu().numpy()}
+
+
+def phase_audio_zoo_family(torch, card, family: str, dev, wavs: dict, check_names,
+                           ragged_names, d: str, fields: dict) -> dict:
+    """20 (a)-(d) for one family; returns its readings."""
+    from mertools_tpu_torch.cli import extract_audio
+    from mertools_tpu_torch.io import wav as wav_io
+
+    tag = f"[20 audio zoo] {family}"
+    on_card = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    cfg, sd = zoo_model(family, dev, seed=20, **fields)
+    ex = zoo_extractor(family, cfg, sd, dev)
+    zoo_extract(ex, wavs, "UTT")              # warm every bucket's shapes
+    sync()
+    set_up = time.perf_counter() - t0
+    out, rate = {}, {}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for level in ("UTT", "FRA"):
+        rates = []
+        for _ in range(ZOO_PASSES):
+            t0 = time.perf_counter()
+            out[level] = zoo_extract(ex, wavs, level)
+            sync()
+            rates.append(len(wavs) / (time.perf_counter() - t0))
+        rate[level] = sorted(rates)    # the median is the middle pass
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    for key, f in out["FRA"].items():
+        rows = kept_rows(family, len(wavs[key.split("/")[0]]), cfg)
+        check(f.shape[0] == rows and bool(np.isfinite(f).all()),
+              f"{family} {key}: FRA {f.shape}, want {rows} rows, finite")
+        u = out["UTT"][key]
+        check(bool(np.isfinite(u).all()) and np.abs(u - f.mean(0)).max()
+              <= 1e-5 * np.abs(f).max(), f"{family} {key}: UTT is not the FRA mean")
+    audio_s = sum(len(w) for w in wavs.values()) / SR
+    med = {lv: r[len(r) // 2] for lv, r in rate.items()}
+    print(f"{tag} (a): set-up (weights, upload, a warm pass) {set_up:.1f} s; clips/s, the "
+          f"median of {ZOO_PASSES} passes (slowest-fastest): UTT {med['UTT']:.2f} "
+          f"({rate['UTT'][0]:.2f}-{rate['UTT'][-1]:.2f}), FRA {med['FRA']:.2f} "
+          f"({rate['FRA'][0]:.2f}-{rate['FRA'][-1]:.2f}) ({len(wavs)} clips, "
+          f"{audio_s:.1f} s of audio); peak {peak:.2f} GiB; FRA rows follow the trim rules "
+          f"and UTT is their mean [{card}]", flush=True)
+    print(f"{tag} (a): {zoo_profile(torch, ex, wavs, dev)} [{card}]", flush=True)
+
+    # (b) card vs CPU from the same weights at ZOO_CHECK_DEPTH
+    sub = {n: wavs[n] for n in check_names}
+    ccfg, csd = cut_depth(family, cfg, sd, ZOO_CHECK_DEPTH.get(family, {}))
+    got = zoo_extract(zoo_extractor(family, ccfg, csd, dev), sub, "FRA")
+    want = zoo_extract(zoo_extractor(family, ccfg, {k: v.cpu() for k, v in csd.items()},
+                                     "cpu"), sub, "FRA")
+    cpu = zoo_gate(rel_diff(got, want), ZOO_CPU_TOL, f"{family} card vs CPU")
+
+    # (c) rows of one ragged bucketed batch of (a) against each clip alone
+    rag = None
+    if family in ("emotion2vec", "wav2vec1"):
+        alone = {f"{n}{part}": rows for n in ragged_names
+                 for part, rows in zoo_alone(torch, family, ex, wavs[n], dev).items()}
+        rag = zoo_gate(rel_diff({k: out["FRA"][k] for k in alone}, alone), ZOO_RAGGED_TOL,
+                       f"{family} ragged batch vs alone")
+    del ex
+
+    # (d) extract_audio on a reference-layout checkpoint file
+    lcfg, lsd = cut_depth(family, cfg, sd, ZOO_CLI_DEPTH.get(family, {}))
+    t0 = time.perf_counter()
+    path = write_zoo_checkpoint(d, family, lsd)
+    name, audio = ZOO_CLI_NAMES[family], os.path.join(d, "audio")
+    quiet(extract_audio.main, ["--model_name", name, "--pretrain_dir", d, "--audio_dir", audio,
+                               "--save_dir", os.path.join(d, "f"), "--feature_level", "FRAME",
+                               "--device", "cuda" if on_card else "cpu"])
+    cli_s = time.perf_counter() - t0
+    read = {os.path.splitext(f)[0]: wav_io.read_wav_16k(os.path.join(audio, f))
+            for f in sorted(os.listdir(audio))}
+    want = zoo_extract(zoo_extractor(family, lcfg, lsd, dev), read, "FRA")
+    stores = ([(f"{name}-z-FRA", "/z"), (f"{name}-c-FRA", "/c")] if family == "wav2vec1"
+              else [(f"{name}-FRA", "")])
+    got = {}
+    for store, part in stores:
+        files = sorted(os.listdir(os.path.join(d, "f", store)))
+        check(files == sorted(f"{n}.npy" for n in read), f"{family} CLI store {store}: {files}")
+        got.update({f"{n}{part}": np.load(os.path.join(d, "f", store, f"{n}.npy"))
+                    for n in read})
+    cli = zoo_gate(rel_diff(got, want), ZOO_CLI_TOL, f"{family} CLI vs extractor")
+    print(f"{tag} (b) card vs CPU at {ZOO_CHECK_DEPTH.get(family) or 'full depth'} on "
+          f"{len(sub)} clips: {cpu:.3e} (limit {ZOO_CPU_TOL:.0e}); (c) ragged vs alone: "
+          + (f"{rag:.3e} (limit {ZOO_RAGGED_TOL:.0e})" if rag is not None else "not run")
+          + f"; (d) extract_audio on {os.path.basename(path)} at "
+          f"{ZOO_CLI_DEPTH.get(family) or 'full depth'} ({', '.join(s for s, _ in stores)}, "
+          f"{len(read)} wavs, {cli_s:.1f} s with the write): {cli:.3e} from the extractor "
+          f"(limit {ZOO_CLI_TOL:.0e}) [{card}]", flush=True)
+    return {"utt_clips_s": med["UTT"], "fra_clips_s": med["FRA"], "peak_gib": peak,
+            "cpu": cpu, "ragged": rag, "cli": cli}
+
+
+def phase_audio_zoo(torch, card, dev: str = "cuda", wavs16=None, configs=None,
+                    n_check: int = 4, n_cli: int = 6) -> dict:
+    """20: the audio encoder zoo behind ``extract_audio`` at published
+    width with seeded weights (``configs`` may replace a family's config
+    fields, for a run at a small size):
+    (a) each extractor on ``zoo_clips()``, UTT and FRA; (b) card vs CPU on
+    the ``n_check`` shortest clips at ``ZOO_CHECK_DEPTH``; (c) for
+    emotion2vec and wav2vec 1.0, four clips of one ragged batch against
+    each run alone; (d) ``extract_audio`` on a reference-layout checkpoint
+    file, on ``n_cli`` of the clips written as wavs."""
+    wavs16 = wavs16 if wavs16 is not None else zoo_clips()
+    wavs = {n: w.astype(np.float32) / 32768.0 for n, w in wavs16.items()}
+    by_len = sorted(wavs, key=lambda n: len(wavs[n]))
+    # four clips that shared a ragged batch in (a): the longest four of the
+    # last bucket under 10 s
+    ragged = [n for n in by_len if len(wavs[n]) <= 10 * SR][-4:]
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        write_wavs(os.path.join(d, "audio"), {n: wavs16[n] for n in by_len[:n_cli]})
+        for family in ZOO_FAMILIES:
+            res[family] = phase_audio_zoo_family(torch, card, family, dev, wavs,
+                                                 by_len[:n_check], ragged, d,
+                                                 (configs or {}).get(family, {}))
+            if torch.device(dev).type == "cuda":
+                torch.cuda.empty_cache()
+    print(f"[20 audio zoo] phase 20 took {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return res
+
+
+def audio_zoo_phase(torch, wrappers, card) -> dict:
+    """Phase 20 with the kernels' counts set to 0 before it and read after
+    it: the JAX zoo's attention is a dense einsum and its spectra are
+    ``jnp.fft``, so no kernel of the port runs."""
+    for w in wrappers:
+        w.launches = 0
+    res = phase_audio_zoo(torch, card)
+    counts = no_launches(wrappers, "phase 20")
+    print(f"[20 audio zoo] kernel launches in phase 20: {counts} [{card}]", flush=True)
+    return counts
+
+
 def b3_times_of(torch, root: str) -> int:
     """Phase 9's bf16 timing lines (S 512 and S 1024), phase 2's bf16 B1
     line (kernel, SDPA with the key mask, bound) and phase 5's B2 line
@@ -4410,10 +4753,9 @@ def main(argv: list[str]) -> int:
         return 1
     if argv[:1] == ["--b3-times"] and len(argv) == 2:
         return b3_times_of(torch, argv[1])
-    zoo_only = argv == ["--fusion-zoo"]
-    serving_only = argv == ["--serving"]
-    e2e_only = argv == ["--e2e"]
-    if argv and not (zoo_only or serving_only or e2e_only):
+    alone = {"--fusion-zoo": zoo_phase, "--serving": serving_phase, "--e2e": e2e_phase,
+             "--audio-zoo": audio_zoo_phase}
+    if argv and (len(argv) > 1 or argv[0] not in alone):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(HERE, "mertools_tpu_torch")):
@@ -4441,11 +4783,10 @@ def main(argv: list[str]) -> int:
     print(f"[1 device] {kind}; nvidia-smi: {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     wrappers = [fa.flash_attention, mf.mel_power] + [getattr(fc, n) for n in B3_WRAPPERS]
-    if zoo_only or serving_only or e2e_only:
+    if argv:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        (zoo_phase if zoo_only else serving_phase if serving_only else e2e_phase)(
-            torch, wrappers, card)
+        alone[argv[0]](torch, wrappers, card)
         return 0
     path, secs, log = _kernels.build()
     usage = check_no_spills(log)
@@ -4516,6 +4857,8 @@ def main(argv: list[str]) -> int:
     serving_phase(torch, wrappers, card)
     torch.cuda.empty_cache()
     e2e_phase(torch, wrappers, card)
+    torch.cuda.empty_cache()
+    b1_paths["audio zoo (20)"] = audio_zoo_phase(torch, wrappers, card)["flash_attention"]
 
     b, m = kres["bf16"], mres
     kernels = [{

@@ -10,9 +10,12 @@ Loads the HF checkpoint from ``{pretrain_dir}/{model_name}`` without
 reads wavs through the native frontend, and runs the bucketed batched
 pipeline on ``--device`` (default ``cuda``, card index ``--gpu``). Output
 layout matches the reference:
-``{save_dir}/{model_name}-{UTT|FRA}/{clip}.npy``. The wav2vec2 / HuBERT /
-data2vec / WavLM family and Whisper are ported; the other encoders exit with
-the ROADMAP item that ports them. For the wav2vec2 family,
+``{save_dir}/{model_name}-{UTT|FRA}/{clip}.npy``. Every model family of the
+JAX CLI runs: the wav2vec2 / HuBERT / data2vec / WavLM family, Whisper,
+VGGish (a torchvggish ``.pt``), fairseq wav2vec 1.0 (a ``.pt``; its z and c
+features go to ``{model_name}-z-{level}`` and ``{model_name}-c-{level}``),
+funasr emotion2vec (a ``.pt``) and ImageBind audio (``imagebind_huge.pth``).
+For the wav2vec2 family,
 ``--finetuned_ckpt DIR`` replaces the loaded weights with a fine-tuned
 backbone (``main_release --model=e2e_model --savemodel`` writes
 ``model/fold{i}_backbone``), held to the selected architecture's keys and
@@ -31,23 +34,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from ..core.checkpoint import read_finetuned, read_hf_config, read_hf_weights
-
-# model-name fragment -> the ROADMAP item that ports its extractor
-_NOT_PORTED = (
-    ("vggish", "A9, the remaining encoder zoo"),
-    ("emotion2vec", "A9, the remaining encoder zoo"),
-    ("imagebind", "A9, the remaining encoder zoo"),
-)
-
-
-def _not_ported(lname: str) -> str | None:
-    if lname.startswith("wav2vec") and not lname.startswith("wav2vec2"):
-        return "A9, the remaining encoder zoo (wav2vec-1.0)"
-    for frag, item in _NOT_PORTED:
-        if frag in lname:
-            return item
-    return None
+from ..core.checkpoint import (read_finetuned, read_hf_config, read_hf_weights,
+                               select_keys)
 
 
 def load_whisper(model_name: str, pretrain_dir: str | None, random_init: bool):
@@ -93,6 +81,86 @@ def load_encoder(model_name: str, pretrain_dir: str | None, random_init: bool,
             load_hf_state_dict(read_hf_weights(path)))
 
 
+def zoo_family(lname: str) -> str | None:
+    """The audio-zoo family a lower-cased model name selects, as the JAX
+    CLI dispatches: "vggish", "wav2vec1" (a ``wav2vec`` name that is not
+    ``wav2vec2``), "emotion2vec", "imagebind", or None (Whisper and the
+    wav2vec2 family)."""
+    if "whisper" in lname:
+        return None
+    if "vggish" in lname:
+        return "vggish"
+    if lname.startswith("wav2vec") and not lname.startswith("wav2vec2"):
+        return "wav2vec1"
+    return next((f for f in ("emotion2vec", "imagebind") if f in lname), None)
+
+
+def _checkpoint_path(model_name: str, pretrain_dir: str | None, suffixes: tuple) -> str:
+    path = os.path.join(pretrain_dir, model_name) if pretrain_dir else model_name
+    return path if path.endswith(suffixes) else path + suffixes[0]
+
+
+def load_zoo(family: str, model_name: str, pretrain_dir: str | None,
+             random_init: bool, device: str):
+    """The extractor of an audio-zoo family: weights from the reference's
+    checkpoint file ``{pretrain_dir}/{model_name}`` (a torchvggish ``.pt``
+    or ``.pth``, a fairseq wav2vec 1.0 ``.pt``, a funasr emotion2vec ``.pt``,
+    ``imagebind_huge.pth``; the suffix is added when missing, as the JAX
+    CLI adds it), or with ``random_init`` seeded ones at the JAX CLI's
+    sizes. fairseq and funasr checkpoints carry pickled args, so they are
+    read with ``weights_only=False``, as the JAX CLI reads them."""
+    import torch
+
+    from ..encoders import audio_zoo as z
+    from ..encoders import emotion2vec as e2v
+    from ..encoders import imagebind as ib
+    from ..features import audio as fa
+
+    gen = torch.Generator().manual_seed(0)
+    if family == "vggish":
+        if random_init:
+            sd = z.vggish_init_params(gen)
+        else:
+            sd = torch.load(_checkpoint_path(model_name, pretrain_dir, (".pt", ".pth")),
+                            map_location="cpu", weights_only=True)
+            with torch.device("meta"):
+                sd = select_keys(dict(sd), z.VGGish().state_dict(), "vggish")
+        return fa.VGGishExtractor(sd, device=device)
+    if family == "wav2vec1":
+        if random_init:
+            cfg = z.Wav2Vec1Config(enc_layers=((32, 10, 5), (32, 8, 4)),
+                                   ctx_layers=((32, 3), (32, 3)))
+            sd = z.wav2vec1_init_params(cfg, gen)
+        else:
+            ckpt = torch.load(_checkpoint_path(model_name, pretrain_dir, (".pt",)),
+                              map_location="cpu", weights_only=False)
+            sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+            cfg = z.Wav2Vec1Config()
+            with torch.device("meta"):
+                sd = select_keys(dict(sd), z.Wav2Vec1(cfg).state_dict(), "wav2vec 1.0")
+        return fa.Wav2Vec1Extractor(sd, cfg, device=device)
+    if family == "emotion2vec":
+        if random_init:
+            cfg = e2v.Emotion2VecConfig(
+                conv_layers=((32, 10, 5), (32, 8, 4)), hidden_size=32, prenet_depth=1,
+                depth=1, num_heads=4, conv_pos_depth=2, conv_pos_width=10,
+                conv_pos_groups=4)
+            sd = e2v.init_params(cfg, gen)
+        else:
+            cfg, sd = e2v.load_funasr_checkpoint(
+                _checkpoint_path(model_name, pretrain_dir, (".pt",)))
+        return fa.Emotion2VecExtractor(sd, cfg, device=device)
+    if random_init:
+        cfg = ib.ImageBindAudioConfig(embed_dim=32, num_blocks=2, num_heads=4,
+                                      out_embed_dim=48)
+        sd = ib.init_params(cfg, gen)
+    else:
+        sd = torch.load(_checkpoint_path(model_name, pretrain_dir, (".pth",)),
+                        map_location="cpu", weights_only=True)
+        cfg, sd = ib.from_imagebind_checkpoint(dict(sd))
+    return fa.ImageBindAudioExtractor(cfg, sd, device=device)
+
+
 def main(argv=None):
     from ..core.config import resolve_dataset_args
     from ..core.profiling import trace
@@ -132,23 +200,36 @@ def main(argv=None):
                         "(main_release --savemodel's model/fold{i}_backbone)")
     args = p.parse_args(argv)
 
-    item = _not_ported(args.model_name.lower())
-    if item is not None:
-        raise SystemExit(f"{args.model_name}: this extractor is not ported to "
-                         f"mertools_tpu_torch yet (ROADMAP {item}); use "
-                         f"python -m mertools_tpu.cli.extract_audio")
-    whisper = "whisper" in args.model_name.lower()
-    if whisper and args.finetuned_ckpt:
+    lname = args.model_name.lower()
+    whisper, family = "whisper" in lname, zoo_family(lname)
+    if (whisper or family) and args.finetuned_ckpt:
         raise SystemExit("--finetuned_ckpt reads a fine-tuned wav2vec2-family "
-                         "backbone; e2e_model fine-tunes no Whisper encoder")
+                         "backbone; e2e_model fine-tunes no "
+                         f"{'Whisper' if whisper else family} encoder")
     resolve_dataset_args(args, audio_dir="audio", save_dir="features")
 
     level = "UTT" if args.feature_level == "UTTERANCE" else "FRA"
-    out_dir = os.path.join(args.save_dir, f"{args.model_name}-{level}")
+    if family == "wav2vec1":
+        # the reference writes the feature-encoder and context features to
+        # two stores (extract_wav2vec_embedding.py:36-43)
+        out_dir = os.path.join(args.save_dir, f"{args.model_name}-z-{level}")
+        out_dir_c = os.path.join(args.save_dir, f"{args.model_name}-c-{level}")
+        os.makedirs(out_dir_c, exist_ok=True)
+    else:
+        out_dir = os.path.join(args.save_dir, f"{args.model_name}-{level}")
+        out_dir_c = None
     os.makedirs(out_dir, exist_ok=True)
 
     device = f"cuda:{args.gpu}" if args.device == "cuda" else "cpu"
-    if whisper:
+    if family:
+        for flag, value, default in (("compute_dtype", args.compute_dtype, None),
+                                     ("transfer_dtype", args.transfer_dtype, "f32")):
+            if value != default:
+                print(f"--{flag} {value} is ignored: the {family} extractor "
+                      f"runs in fp32 on f32 samples, as the JAX package's does")
+        ex = load_zoo(family, args.model_name, args.pretrain_dir, args.random_init,
+                      device)
+    elif whisper:
         if args.compute_dtype is not None:
             print(f"--compute_dtype {args.compute_dtype} is ignored: the "
                   f"Whisper extractor runs in fp32, as the JAX package's does")
@@ -180,8 +261,12 @@ def main(argv=None):
         wavs = {}
         for f in batch_files:
             name = os.path.splitext(os.path.basename(f))[0]
-            if os.path.exists(os.path.join(out_dir, name + ".npy")):
-                continue  # idempotent skip (reference behavior)
+            # idempotent skip (reference behavior); the two-store run skips a
+            # clip only when both stores hold it (an interrupted run may have
+            # written z and not c)
+            if all(os.path.exists(os.path.join(d, name + ".npy"))
+                   for d in (out_dir, out_dir_c) if d is not None):
+                continue
             wavs[name] = wav_io.read_wav_16k(f)
         return wavs
 
@@ -196,9 +281,14 @@ def main(argv=None):
                    if ci + 1 < len(chunks) else None)
             if not wavs:
                 continue
-            feats = ex.extract(wavs, level=level)
-            for name, feat in feats.items():
-                np.save(os.path.join(out_dir, name + ".npy"), feat)
+            if out_dir_c is not None:
+                zs, cs = ex.extract_zc(wavs, level=level)
+                for name in zs:
+                    np.save(os.path.join(out_dir, name + ".npy"), zs[name])
+                    np.save(os.path.join(out_dir_c, name + ".npy"), cs[name])
+            else:
+                for name, feat in ex.extract(wavs, level=level).items():
+                    np.save(os.path.join(out_dir, name + ".npy"), feat)
             done += len(wavs)
             rate = done / (time.time() - t0)
             print(f"  {done} clips, {rate:.2f} clips/sec")

@@ -99,3 +99,16 @@ def load_tokenizer(path: str):
         raise SystemExit(f"{path}: its tokenizer needs the `transformers` "
                          f"package, which is not installed")
     return AutoTokenizer.from_pretrained(path)
+
+
+def select_keys(sd: dict, keys, what: str) -> dict:
+    """The entries of a checkpoint's state dict under ``keys`` (a model's
+    own); the rest (a checkpoint's other heads, buffers, teacher copies)
+    are left out, as the JAX package's converters pick theirs. A missing
+    key raises KeyError naming ``what``."""
+    keys = list(keys)
+    missing = [k for k in keys if k not in sd]
+    if missing:
+        raise KeyError(f"{what}: the checkpoint lacks {len(missing)} of the "
+                       f"model's {len(keys)} keys, e.g. {missing[:3]}")
+    return {k: sd[k] for k in keys}

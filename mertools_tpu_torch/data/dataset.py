@@ -81,12 +81,12 @@ class FeatureDataset:
 
     @classmethod
     def build(cls, names, emos, vals, audio_root, text_root, video_root,
-              feat_type="utt", feat_scale=1, max_workers=8) -> "FeatureDataset":
+              feat_type="utt", feat_scale=1) -> "FeatureDataset":
         if feat_type not in ("utt", "frm_align", "frm_unalign"):
             raise ValueError(f"unknown feat_type {feat_type!r}")
-        audios, _ = feature_store.read_features(audio_root, names, max_workers)
-        texts, _ = feature_store.read_features(text_root, names, max_workers)
-        videos, _ = feature_store.read_features(video_root, names, max_workers)
+        audios, _ = feature_store.read_features(audio_root, names)
+        texts, _ = feature_store.read_features(text_root, names)
+        videos, _ = feature_store.read_features(video_root, names)
         return cls.from_raw(names, emos, vals, audios, texts, videos,
                             feat_type, feat_scale)
 
@@ -193,13 +193,12 @@ class TopNFeatureDataset:
 
     @classmethod
     def build(cls, names, emos, vals, features_root, topn: int,
-              modality: str = "AVT", snr: str | None = None,
-              max_workers=8) -> "TopNFeatureDataset":
+              modality: str = "AVT", snr: str | None = None) -> "TopNFeatureDataset":
         feats = []
         for fname in cls.feature_names(topn, modality):
             root = os.path.join(features_root,
                                 snr_variant(G.feature_dir_name(fname, "UTT"), snr))
-            raw, _ = feature_store.read_features(root, names, max_workers)
+            raw, _ = feature_store.read_features(root, names)
             feats.append(align.align_to_utt_np(raw).astype(np.float32))
         return cls(names=list(names), feats=feats,
                    emos=np.asarray(emos, np.int32),

@@ -8,15 +8,16 @@ Layout (reference ``MERBench/toolkit/utils/read_data.py:15-41``):
     (OpenFace-style), concatenated in sorted order.
 
 Reads normalize to (T, D) float32 (a (D,) vector becomes (1, D)), exactly as
-``func_read_one_feat``. The reference fans reads over a ``Pool(8)``; here a
-thread pool overlaps the (IO-bound) reads, with a serial path for one
-worker.
+``func_read_one_feat``. The reference fans reads over a ``Pool(8)``; here
+they are serial, one ``open`` and one ``read`` a file: a thread pool of
+``np.load`` calls was slower than that on the H100 machine's 9p file system,
+its threads taking turns at the GIL between short system calls.
 """
 
 from __future__ import annotations
 
+import io
 import os
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -25,15 +26,15 @@ def read_one_feature(root: str, name: str) -> np.ndarray:
     """Read one clip's feature as (T, D) float32."""
     path = os.path.join(root, name + ".npy")
     dir_path = os.path.join(root, name)
-    if os.path.exists(path):
-        feat = np.load(path)
-        feat = np.squeeze(feat)
-    elif os.path.isdir(dir_path):
+    try:
+        with open(path, "rb", buffering=0) as f:
+            feat = np.squeeze(np.load(io.BytesIO(f.read())))
+    except FileNotFoundError:
+        if not os.path.isdir(dir_path):
+            raise FileNotFoundError(f"no feature at {path} or {dir_path}") from None
         frames = [np.load(os.path.join(dir_path, f))
                   for f in sorted(os.listdir(dir_path))]
         feat = np.squeeze(np.array(frames))
-    else:
-        raise FileNotFoundError(f"no feature at {path} or {dir_path}")
     if feat.ndim == 0 or feat.size == 0:
         raise ValueError(f"empty/garbled feature for {name} under {root}")
     if feat.ndim == 1:
@@ -41,8 +42,7 @@ def read_one_feature(root: str, name: str) -> np.ndarray:
     return np.ascontiguousarray(feat, dtype=np.float32)
 
 
-def read_features(root: str, names: list[str], max_workers: int = 8
-                  ) -> tuple[list[np.ndarray], int]:
+def read_features(root: str, names: list[str]) -> tuple[list[np.ndarray], int]:
     """Read many clips; returns (features, feature_dim).
 
     Mirrors ``func_read_multiprocess`` (read_data.py:46-67) including the
@@ -50,11 +50,7 @@ def read_features(root: str, names: list[str], max_workers: int = 8
     """
     if len(names) == 0:
         return [], 0
-    if max_workers <= 1:
-        feats = [read_one_feature(root, n) for n in names]
-    else:
-        with ThreadPoolExecutor(max_workers=max_workers) as pool:
-            feats = list(pool.map(lambda n: read_one_feature(root, n), names))
+    feats = [read_one_feature(root, n) for n in names]
     dim = feats[0].shape[-1]
     return feats, dim
 

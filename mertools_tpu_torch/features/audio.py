@@ -20,7 +20,12 @@ on the device so only (B, D) sums cross back.
 
 :class:`WhisperAudioExtractor` is the Whisper branch
 (``mertools_tpu/features/audio.py:329-393``): 30 s clips, log-mel, encoder
-and a 2-token decoder stub.
+and a 2-token decoder stub. The audio zoo's extractors (``:396-630``) run a
+whole clip through one forward, at ``WHOLECLIP_BUCKETS`` lengths:
+:class:`VGGishExtractor`, :class:`Wav2Vec1Extractor` (z and c),
+:class:`Emotion2VecExtractor`, and :class:`ImageBindAudioExtractor` (eight
+2 s clips a video). All four run in fp32 with TF32 off, as the JAX zoo runs
+at HIGHEST.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device, to_pcm16, upload
+from ..encoders import audio_zoo, emotion2vec, imagebind
 from ..encoders.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
+from ..ops.fbank import imagebind_melspec, sample_audio_clips
 from ..ops.quant import int8_dot_general
 
 MAX_SEGMENT = 16000 * 10  # 10 s at 16 kHz (reference maxlen)
@@ -324,6 +331,216 @@ class WhisperAudioExtractor:
                 batch[r, : min(len(w), self.chunk)] = w[: self.chunk]
             hs = self._forward(upload(batch, self._device))
             pending.append((group, hs.mean(1) if utt else hs))
+        out = {}
+        for group, res in pending:
+            res = res.cpu().numpy()
+            for r, n in enumerate(group):
+                out[n] = res[r]
+        return out
+
+
+# Whole-clip buckets for the single-forward extractors: the reference's
+# vggish / wav2vec 1.0 scripts run the ENTIRE waveform through one forward
+# (no 10 s segmenting), and wav2vec 1.0's instance norms are global over
+# time, so chunking would change the statistics. Clips beyond the last
+# bucket truncate with a warning.
+WHOLECLIP_BUCKETS = DEFAULT_BUCKETS + (240000, 320000, 480000, 960000)
+
+
+def _bucket_groups(wavs: dict, buckets: tuple, what: str) -> dict:
+    """name->wav dict -> {bucket_len: [(name, wav), ...]}, with a warning
+    for each clip truncated to the last bucket."""
+    by_bucket: dict[int, list] = {}
+    for name, w in wavs.items():
+        w = np.asarray(w, np.float32)
+        if len(w) > buckets[-1]:
+            print(f"WARNING: {what}: clip {name!r} is {len(w)} samples; "
+                  f"truncating to {buckets[-1]} ({buckets[-1] / 16000:.0f} s)")
+            w = w[: buckets[-1]]
+        bucket = next((b for b in buckets if len(w) <= b), buckets[-1])
+        by_bucket.setdefault(bucket, []).append((name, w))
+    return by_bucket
+
+
+def _load(model: torch.nn.Module, params: dict, device: torch.device) -> torch.nn.Module:
+    """``model`` (built on the meta device) with ``params`` uploaded once,
+    in fp32 and eval mode."""
+    model.load_state_dict(params, strict=True, assign=True)
+    return model.to(device, torch.float32).eval()
+
+
+def _kept_mean(feat: torch.Tensor, keep: np.ndarray) -> torch.Tensor:
+    """(B, T, D) -> (B, D): each row's mean over its first ``keep[r]``
+    frames, on the device."""
+    n = upload(np.asarray(keep, np.int64), feat.device)
+    m = (torch.arange(feat.shape[1], device=feat.device)[None, :] < n[:, None]).float()
+    return torch.einsum("btd,bt->bd", feat, m) / n[:, None].float()
+
+
+class _WholeClipExtractor:
+    """Clips batched at bucketed lengths, ``batch_size`` rows a batch (no
+    filler rows), every batch dispatched before any result is read.
+    ``_forward(wav, lens)`` gives each output's (B, T', D) features and
+    ``_kept(lens)`` the rows each clip keeps; UTT is the mean of the kept
+    rows, taken on the device."""
+
+    what = "audio"
+    n_outputs = 1
+
+    def __init__(self, batch_size: int, buckets: tuple, device):
+        self.batch_size = batch_size
+        self.buckets = buckets
+        self._device = resolve_device(device, fp32=True)
+
+    @torch.inference_mode()
+    def _extract(self, wavs: dict[str, np.ndarray], level: str) -> list[dict]:
+        utt = level.upper().startswith("UTT")
+        pending = []
+        for bucket, items in sorted(_bucket_groups(wavs, self.buckets, self.what).items()):
+            for i in range(0, len(items), self.batch_size):
+                group = items[i: i + self.batch_size]
+                batch = np.zeros((len(group), bucket), np.float32)
+                lens = np.array([len(w) for _, w in group], np.int32)
+                for r, (_, w) in enumerate(group):
+                    batch[r, : len(w)] = w
+                feats = self._forward(upload(batch, self._device),
+                                      upload(lens, self._device))
+                keep = self._kept(lens)
+                pending.append((group, keep, [_kept_mean(f, keep) if utt else f
+                                              for f in feats]))
+        outs = [{} for _ in range(self.n_outputs)]
+        for group, keep, feats in pending:
+            for out, f in zip(outs, feats):
+                f = f.cpu().numpy()
+                for r, (name, _) in enumerate(group):
+                    out[name] = f[r] if utt else f[r, : keep[r]]
+        return outs
+
+
+class VGGishExtractor(_WholeClipExtractor):
+    """VGGish AudioSet path (extract_vggish_embedding.py + the vendored
+    vggish/ TF1 code): wav -> 0.96 s log-mel patches (96, 64) -> VGG stack
+    -> (P, 128) FRA / mean UTT. Each clip keeps its true patch count (frames
+    are causal, so the kept patches do not see the padding). ``params`` is
+    a torchvggish state dict."""
+
+    what = "vggish"
+
+    def __init__(self, params: dict, batch_size: int = 8,
+                 buckets: tuple = WHOLECLIP_BUCKETS, device="cuda"):
+        super().__init__(batch_size, buckets, device)
+        with torch.device("meta"):
+            model = audio_zoo.VGGish()
+        self.model = _load(model, params, self._device)
+
+    def _forward(self, wav, lens):
+        return [audio_zoo.vggish_extract(self.model, wav)]
+
+    def _kept(self, lens):
+        return np.array([audio_zoo.vggish_patches(int(n)) for n in lens])
+
+    def extract(self, wavs: dict[str, np.ndarray], level: str = "FRA"
+                ) -> dict[str, np.ndarray]:
+        return self._extract(wavs, level)[0]
+
+
+class Emotion2VecExtractor(_WholeClipExtractor):
+    """funasr emotion2vec path (MER2024 via the funasr AutoModel,
+    run-mer2024.sh:46): wav -> per-utterance layer_norm (inside the module)
+    -> data2vec-multi trunk -> (T', 768) FRA / mean UTT. Masked norms keep
+    right-padded rows equal to per-clip execution. ``params`` is a state
+    dict in the funasr key layout."""
+
+    what = "emotion2vec"
+
+    def __init__(self, params: dict, cfg=None, batch_size: int = 8,
+                 buckets: tuple = WHOLECLIP_BUCKETS, device="cuda"):
+        super().__init__(batch_size, buckets, device)
+        self.cfg = cfg or emotion2vec.Emotion2VecConfig()
+        with torch.device("meta"):
+            model = emotion2vec.Emotion2Vec(self.cfg)
+        self.model = _load(model, params, self._device)
+
+    def _forward(self, wav, lens):
+        return [self.model(wav, lens)[0]]
+
+    def _kept(self, lens):
+        return np.maximum(emotion2vec.out_lengths(lens, self.cfg), 1)
+
+    def extract(self, wavs: dict[str, np.ndarray], level: str = "FRA"
+                ) -> dict[str, np.ndarray]:
+        return self._extract(wavs, level)[0]
+
+
+class Wav2Vec1Extractor(_WholeClipExtractor):
+    """fairseq wav2vec 1.0 path (extract_wav2vec_embedding.py:30-52): wav ->
+    z (feature encoder) AND c (context network) features, saved to two
+    stores. Masked instance norms keep right-padded rows equal to per-clip
+    execution."""
+
+    what = "wav2vec-1.0"
+    n_outputs = 2
+
+    def __init__(self, params: dict, cfg=None, batch_size: int = 8,
+                 buckets: tuple = WHOLECLIP_BUCKETS, device="cuda"):
+        super().__init__(batch_size, buckets, device)
+        self.cfg = cfg or audio_zoo.Wav2Vec1Config()
+        with torch.device("meta"):
+            model = audio_zoo.Wav2Vec1(self.cfg)
+        self.model = _load(model, params, self._device)
+
+    def _forward(self, wav, lens):
+        out = self.model(wav, lens)
+        return [out["z"], out["c"]]
+
+    def _kept(self, lens):
+        return audio_zoo.w2v1_out_lengths(lens, self.cfg)
+
+    def extract_zc(self, wavs: dict[str, np.ndarray], level: str = "FRA"
+                   ) -> tuple[dict, dict]:
+        """Returns (z_feats, c_feats) dicts."""
+        zs, cs = self._extract(wavs, level)
+        return zs, cs
+
+
+class ImageBindAudioExtractor:
+    """ImageBind audio path (MER2025_Track23 my_affectgpt/models/
+    ImageBind/data.py + encoder.py:285-311): wav -> 8 uniformly spaced 2 s
+    clips -> kaldi fbank (128, 204) mel "images" normalised with the AudioSet
+    stats -> audio trunk -> per-clip 1024-d normalised embeddings. FRA =
+    (8, 1024) a video; UTT = the clips' mean (ImageBind's ``reduce_list``
+    mean, imagebind_model.py:470-474), taken on the device. ``batch_clips``
+    videos a batch (filler rows are zeros, as in the JAX package)."""
+
+    def __init__(self, cfg, params: dict, batch_clips: int = 4,
+                 clips_per_video: int = 8, device="cuda"):
+        self.cfg = cfg
+        self.clips_per_video = clips_per_video
+        self.batch_clips = batch_clips
+        self._device = resolve_device(device, fp32=True)
+        with torch.device("meta"):
+            model = imagebind.ImageBindAudioEncoder(cfg)
+        self.model = _load(model, params, self._device)
+
+    def _forward(self, clips: torch.Tensor) -> torch.Tensor:
+        B, S = clips.shape[:2]
+        mels = imagebind_melspec(clips.reshape(B * S, -1), self.cfg.num_mel_bins,
+                                 self.cfg.target_len)
+        return self.model(mels)["embed"].reshape(B, S, -1)
+
+    @torch.inference_mode()
+    def extract(self, wavs: dict[str, np.ndarray], level: str = "FRA"
+                ) -> dict[str, np.ndarray]:
+        names, S, B = list(wavs), self.clips_per_video, self.batch_clips
+        utt = level.upper().startswith("UTT")
+        pending = []   # dispatch every batch, then collect
+        for i in range(0, len(names), B):
+            group = names[i: i + B]
+            batch = np.zeros((B, S, 2 * 16000), np.float32)
+            for r, n in enumerate(group):
+                batch[r] = sample_audio_clips(wavs[n], clips_per_video=S)
+            emb = self._forward(upload(batch, self._device))
+            pending.append((group, emb.mean(1) if utt else emb))
         out = {}
         for group, res in pending:
             res = res.cpu().numpy()

@@ -12,8 +12,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..core.flax_init import xavier_normal_
 from ..core.registry import registry
-from .base import FromArgsMixin, xavier_normal_
+from .base import FromArgsMixin
 from .modules import LSTMEncoder, MLPEncoder, SimpleClassifierHeads
 
 

@@ -53,10 +53,10 @@ import torch
 
 from ..core.config import Args
 from ..core.device import resolve_device, upload
+from ..core.flax_init import init_flax_style
 from ..data import cv as cv_mod
 from ..data.dataset import FeatureDataset, epoch_plan
 from ..models import get_model
-from ..models.base import init_flax_style
 from ..ops import losses, metrics
 
 

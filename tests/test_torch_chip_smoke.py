@@ -714,3 +714,124 @@ def test_phase19_step_flop_counts_the_backbone_from_its_shapes():
     layers = 24 * (2 * 99 * (4 * 1024 ** 2 + 2 * 1024 * 4096) + 4 * 99 ** 2 * 1024)
     assert 70e9 < one < 73e9 and one - layers > 11e9
     assert round(chip_smoke.e2e_step_flop(cfg, 256, 32000) / 1e12, 2) == 55.55
+
+
+def test_phase20_clips_reach_the_whole_clip_buckets_above_10_s():
+    """Phase 3's 64 clips and 4 seeded ones of 20-45 s: the whole-clip
+    buckets of 20, 30 or 60 s are reached, and the draw repeats."""
+    from mertools_tpu_torch.features.audio import WHOLECLIP_BUCKETS
+
+    a, b = chip_smoke.zoo_clips(), chip_smoke.zoo_clips()
+    _, bench, _ = chip_smoke.bench_clips()
+    assert len(a) == 68 and all(np.array_equal(a[n], bench[n]) for n in bench)
+    assert all(np.array_equal(a[n], b[n]) and a[n].dtype == np.int16 for n in a)
+    longs = [len(a[f"long{i}"]) for i in range(4)]
+    assert all(20 * 16000 <= n < 45 * 16000 for n in longs)
+    buckets = {next(x for x in WHOLECLIP_BUCKETS if n <= x) for n in longs}
+    assert buckets and min(buckets) > 160000
+
+
+def test_phase20_kept_rows_follow_the_trim_rules():
+    """VGGish keeps max(frames // 96, 1) patches, wav2vec 1.0 its valid-conv
+    frames, emotion2vec max(out_lengths, 1), ImageBind its 8 clips; a clip
+    past the last bucket (60 s) counts as truncated."""
+    from mertools_tpu_torch.encoders.audio_zoo import Wav2Vec1Config
+    from mertools_tpu_torch.encoders.emotion2vec import Emotion2VecConfig
+
+    w2v, e2v = Wav2Vec1Config(), Emotion2VecConfig()
+    assert [chip_smoke.kept_rows("vggish", n, None) for n in (300, 16000, 31000, 10 ** 6)] \
+        == [1, 1, 2, 62]
+    assert chip_smoke.kept_rows("wav2vec1", 16000, w2v) == 98
+    assert chip_smoke.kept_rows("emotion2vec", 16000, e2v) == 49
+    assert chip_smoke.kept_rows("emotion2vec", 300, e2v) == 1
+    assert chip_smoke.kept_rows("emotion2vec", 10 ** 6, e2v) == 2999
+    assert chip_smoke.kept_rows("imagebind", 5, None) == 8
+
+
+@pytest.mark.parametrize("value,limit,ok", [
+    (2.9e-4, chip_smoke.ZOO_CPU_TOL, True), (3.1e-4, chip_smoke.ZOO_CPU_TOL, False),
+    (5e-5, chip_smoke.ZOO_RAGGED_TOL, True), (6e-5, chip_smoke.ZOO_RAGGED_TOL, False),
+    (float("nan"), chip_smoke.ZOO_CLI_TOL, False)])
+def test_phase20_gates(value, limit, ok):
+    if ok:
+        assert chip_smoke.zoo_gate(value, limit, "x") == value
+    else:
+        with pytest.raises(RuntimeError, match="x "):
+            chip_smoke.zoo_gate(value, limit, "x")
+
+
+def _tiny_imagebind(monkeypatch):
+    """The port's ImageBind config narrowed to 16 wide and 3 blocks
+    (the loaders fix the huge one)."""
+    from mertools_tpu_torch.encoders import imagebind as ib
+
+    cls = ib.ImageBindAudioConfig
+    monkeypatch.setattr(ib, "ImageBindAudioConfig", lambda **kw: cls(**{
+        **dict(embed_dim=16, num_blocks=3, num_heads=4, out_embed_dim=24), **kw}))
+
+
+@pytest.mark.parametrize("family", ["vggish", "wav2vec1", "emotion2vec", "imagebind"])
+def test_phase20_checkpoint_writer_key_layout(tmp_path, monkeypatch, family):
+    """Each file is in the reference's layout under the name the CLI looks
+    for, and the CLI's loader reads the model's weights back from it."""
+    import torch
+
+    from mertools_tpu_torch.cli.extract_audio import load_zoo
+
+    _tiny_imagebind(monkeypatch)
+    fields = {"emotion2vec": dict(hidden_size=48, prenet_depth=1, depth=1,
+                                  conv_layers=((16, 10, 5), (16, 3, 2)))}.get(family, {})
+    _, sd = chip_smoke.zoo_model(family, "cpu", 0, **fields)
+    path = chip_smoke.write_zoo_checkpoint(str(tmp_path), family, sd)
+    assert os.path.basename(path) == {"vggish": "vggish.pt", "wav2vec1": "wav2vec-large.pt",
+                                      "emotion2vec": "emotion2vec_base.pt",
+                                      "imagebind": "imagebind_huge.pth"}[family]
+    blob = torch.load(path, weights_only=False)
+    if family == "wav2vec1":
+        assert sorted(blob) == ["args", "model"] and blob["model"].keys() == sd.keys()
+    elif family == "emotion2vec":
+        assert sorted(blob) == ["cfg", "model"]
+        assert {k for k in blob["model"] if k.startswith("_ema.")} == {
+            f"_ema.{k}" for k in sd if k.startswith("blocks.")} != set()
+        assert "modality_encoders.AUDIO.decoder.proj.weight" in blob["model"]
+    elif family == "imagebind":
+        assert set(blob) - set(sd) == {"modality_trunks.vision.blocks.0.attn.bias_k",
+                                       "modality_postprocessors.audio.1.log_logit_scale"}
+    else:
+        assert blob.keys() == sd.keys()
+    name = os.path.splitext(os.path.basename(path))[0]
+    got = load_zoo(family, name, str(tmp_path), False, "cpu").model.state_dict()
+    assert got.keys() == sd.keys() and all(torch.equal(got[k], sd[k]) for k in sd)
+
+
+def test_phase20_runs_end_to_end_on_the_cpu_at_a_small_size(monkeypatch, capsys):
+    """The phase's orchestration on the CPU (no profile or peak memory
+    there): VGGish at its published width, emotion2vec narrowed, and
+    wav2vec 1.0 and ImageBind narrowed where their loaders fix their
+    configs, on six short clips and one of 10.6 s; every check passes and
+    each part prints."""
+    import torch
+
+    from mertools_tpu_torch.encoders import audio_zoo
+    from mertools_tpu_torch.encoders.emotion2vec import CONV_LAYERS_BASE
+
+    _tiny_imagebind(monkeypatch)
+    w2v1 = audio_zoo.Wav2Vec1Config
+    monkeypatch.setattr(audio_zoo, "Wav2Vec1Config", lambda **kw: w2v1(**{
+        **dict(enc_layers=((32, 10, 5), (32, 8, 4)), ctx_layers=((32, 3), (32, 3))), **kw}))
+    rng = np.random.default_rng(0)
+    wavs16 = {f"c{i}": (rng.normal(size=int(n)) * 3000).astype(np.int16)
+              for i, n in enumerate(rng.integers(6000, 20000, size=6))}
+    wavs16["long"] = (rng.normal(size=170000) * 3000).astype(np.int16)
+    e2v = dict(conv_layers=tuple((16, k, s) for _, k, s in CONV_LAYERS_BASE), hidden_size=48,
+               prenet_depth=1, depth=2, conv_pos_depth=2, conv_pos_width=10,
+               conv_pos_groups=4)
+    res = chip_smoke.phase_audio_zoo(torch, "cpu", "cpu", wavs16=wavs16,
+                                     configs={"emotion2vec": e2v}, n_check=2, n_cli=2)
+    out = capsys.readouterr().out
+    assert sorted(res) == sorted(chip_smoke.ZOO_FAMILIES)
+    for family in chip_smoke.ZOO_FAMILIES:
+        assert out.count(f"[20 audio zoo] {family} (a): ") == 2
+        assert out.count(f"[20 audio zoo] {family} (b) card vs CPU") == 1
+    assert out.count("(c) ragged vs alone: not run") == 2
+    assert "wav2vec-large-z-FRA, wav2vec-large-c-FRA" in out

@@ -64,16 +64,12 @@ def test_extract_audio_cli_end_to_end(tmp_path, monkeypatch):
     main(["--model_name", "chinese-hubert-tiny", "--audio_dir", str(wav_dir),
           "--save_dir", str(tmp_path / "features"), "--random_init",
           "--encoder_size", "tiny", "--device", "cpu",
-          "--feature_level", "FRAME"])
+          "--feature_level", "FRAME", "--batch_budget_sec", "2"])
     fra = np.load(tmp_path / "features" / "chinese-hubert-tiny-FRA" / "clip1.npy")
     assert fra.shape == (((2400 - 10) // 5 + 1 - 3) // 2 + 1, 64)
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model_name", "vggish"], "A9"),
-    (["--model_name", "wav2vec-large"], "wav2vec-1.0"),
-    (["--model_name", "emotion2vec_base"], "A9"),
-    (["--model_name", "imagebind_huge"], "A9"),
     (["--model_name", "whisper-large-v2", "--finetuned_ckpt", "x"],
      "no Whisper encoder"),
 ])
@@ -81,6 +77,17 @@ def test_unported_branches_exit_naming_roadmap(tmp_path, argv, match):
     with pytest.raises(SystemExit, match=match):
         main(argv + ["--audio_dir", str(tmp_path), "--save_dir", str(tmp_path),
                      "--random_init", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("model,family", [
+    ("vggish", "vggish"), ("wav2vec-large", "wav2vec1"),
+    ("emotion2vec_base", "emotion2vec"), ("imagebind_huge", "imagebind")])
+def test_finetuned_ckpt_exits_for_the_audio_zoo(tmp_path, model, family):
+    """``--finetuned_ckpt`` reads a fine-tuned wav2vec2-family backbone, so
+    the zoo's families refuse it, as Whisper does."""
+    with pytest.raises(SystemExit, match=f"fine-tunes no {family} encoder"):
+        main(["--model_name", model, "--finetuned_ckpt", "x", "--audio_dir", str(tmp_path),
+              "--save_dir", str(tmp_path), "--random_init", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("compute_dtype", ["f32", "int8"])
@@ -216,6 +223,156 @@ def test_loaders_read_raw_checkpoint_directories(tmp_path):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
 
 
+def _zoo_wavs(tmp_path, lengths=(6000, 13000)):
+    """PCM16 wavs under ``tmp_path/audio`` and the samples both packages'
+    extractors read from them."""
+    from mertools_tpu_torch.io import wav as wav_io
+
+    wav_dir = tmp_path / "audio"
+    wav_dir.mkdir()
+    for i, n in enumerate(lengths):
+        _write_wav(wav_dir / f"clip{i}.wav", n, 20 + i)
+    return wav_dir, {f"clip{i}": wav_io.read_wav_16k(str(wav_dir / f"clip{i}.wav"))
+                     for i in range(len(lengths))}
+
+
+def _held_to(store, want: dict, tol=2e-4):
+    """Each clip's file in ``store`` against ``want`` (the JAX extractor's
+    features on the same weights): max |port - JAX| <= tol * max |JAX|."""
+    assert sorted(os.listdir(store)) == sorted(f"{n}.npy" for n in want)
+    for n, w in want.items():
+        got = np.load(store / f"{n}.npy")
+        assert got.shape == w.shape, (n, got.shape, w.shape)
+        assert np.abs(got - w).max() <= tol * np.abs(w).max(), n
+
+
+def test_extract_audio_cli_vggish_on_a_torchvggish_checkpoint(tmp_path):
+    """A torchvggish state dict (``vggish.pt``, one key VGGish does not use)
+    gives FRA stores equal to the JAX extractor's on the same weights."""
+    from mertools_tpu.encoders.audio_zoo import vggish_from_torch
+    from mertools_tpu.features.audio import VGGishExtractor
+    from mertools_tpu_torch.encoders.audio_zoo import vggish_init_params
+
+    wav_dir, wavs = _zoo_wavs(tmp_path)
+    sd = vggish_init_params(torch.Generator().manual_seed(1))
+    torch.save({**sd, "pproc._pca_means": torch.zeros(128, 1)}, tmp_path / "vggish.pt")
+    main(["--model_name", "vggish", "--pretrain_dir", str(tmp_path), "--audio_dir",
+          str(wav_dir), "--save_dir", str(tmp_path / "f"), "--feature_level", "FRAME",
+          "--device", "cpu"])
+    want = VGGishExtractor(vggish_from_torch(sd)).extract(wavs, "FRA")
+    assert [want[n].shape for n in wavs] == [(1, 128), (1, 128)]
+    _held_to(tmp_path / "f" / "vggish-FRA", want)
+
+
+def test_extract_audio_cli_wav2vec1_writes_both_stores_and_resumes_on_both(tmp_path):
+    """A fairseq ``.pt`` (pickled args beside ``model``) at the published
+    width: the z and c UTT stores equal the JAX extractor's; a clip whose c
+    file is missing runs again, the other is skipped."""
+    import argparse
+
+    from mertools_tpu.encoders.audio_zoo import wav2vec1_from_fairseq
+    from mertools_tpu.features.audio import Wav2Vec1Extractor
+    from mertools_tpu_torch.encoders.audio_zoo import Wav2Vec1Config, wav2vec1_init_params
+
+    wav_dir, wavs = _zoo_wavs(tmp_path)
+    sd = wav2vec1_init_params(Wav2Vec1Config(), torch.Generator().manual_seed(2))
+    torch.save({"args": argparse.Namespace(arch="wav2vec"), "model": sd},
+               tmp_path / "wav2vec-large.pt")
+    argv = ["--model_name", "wav2vec-large", "--pretrain_dir", str(tmp_path),
+            "--audio_dir", str(wav_dir), "--save_dir", str(tmp_path / "f"), "--device", "cpu"]
+    main(argv)
+    zs, cs = Wav2Vec1Extractor(wav2vec1_from_fairseq(sd)).extract_zc(wavs, "UTT")
+    z_dir, c_dir = tmp_path / "f" / "wav2vec-large-z-UTT", tmp_path / "f" / "wav2vec-large-c-UTT"
+    _held_to(z_dir, zs)
+    _held_to(c_dir, cs)
+    os.remove(c_dir / "clip0.npy")
+    stamp = {d / f"clip{i}.npy": os.stat(d / f"clip{i}.npy").st_mtime_ns
+             for d in (z_dir, c_dir) for i in (0, 1) if (d / f"clip{i}.npy").exists()}
+    main(argv)
+    assert (c_dir / "clip0.npy").exists()
+    assert os.stat(z_dir / "clip0.npy").st_mtime_ns != stamp[z_dir / "clip0.npy"]
+    for d in (z_dir, c_dir):
+        assert os.stat(d / "clip1.npy").st_mtime_ns == stamp[d / "clip1.npy"]
+    _held_to(c_dir, cs)
+
+
+def test_extract_audio_cli_emotion2vec_on_a_funasr_checkpoint(tmp_path):
+    """A funasr ``.pt`` (``model`` with ``_ema`` and decoder keys, pickled
+    config beside it) read by both packages' loaders, which infer the same
+    config (12 heads, the base strides): FRA stores equal JAX's."""
+    from mertools_tpu.encoders.emotion2vec import load_funasr_checkpoint
+    from mertools_tpu.features.audio import Emotion2VecExtractor
+    from mertools_tpu_torch.encoders import emotion2vec as te
+
+    wav_dir, wavs = _zoo_wavs(tmp_path)
+    # the base model's seven convs (320x down), 16 channels, 48 wide
+    cfg = te.Emotion2VecConfig(conv_layers=tuple((16, k, s) for _, k, s in te.CONV_LAYERS_BASE),
+                               hidden_size=48, prenet_depth=1, depth=1, num_heads=12,
+                               conv_pos_depth=2, conv_pos_width=10, conv_pos_groups=4)
+    sd = te.init_params(cfg, torch.Generator().manual_seed(3))
+    extra = {"_ema.blocks.0.norm1.weight": torch.ones(48),
+             "modality_encoders.AUDIO.decoder.proj.weight": torch.ones(4, 48)}
+    path = tmp_path / "emotion2vec_base.pt"
+    torch.save({"cfg": {"model": {"depth": 1}}, "model": {**sd, **extra}}, path)
+    main(["--model_name", "emotion2vec_base", "--pretrain_dir", str(tmp_path),
+          "--audio_dir", str(wav_dir), "--save_dir", str(tmp_path / "f"),
+          "--feature_level", "FRAME", "--device", "cpu"])
+    jcfg, params = load_funasr_checkpoint(str(path))
+    assert te.load_funasr_checkpoint(str(path))[0] == cfg and jcfg.num_heads == 12
+    _held_to(tmp_path / "f" / "emotion2vec_base-FRA",
+             Emotion2VecExtractor(params, jcfg).extract(wavs, "FRA"))
+
+
+def test_extract_audio_cli_imagebind_on_a_checkpoint_audio_subtree(tmp_path, monkeypatch):
+    """An ``imagebind_huge.pth``-layout state dict (other modalities and the
+    postprocessor beside the audio subtree) gives UTT stores equal to JAX's
+    on the same weights. Both loaders fix the huge config; the port's is
+    narrowed here to 16 wide and 2 blocks (the card runs the huge one)."""
+    from mertools_tpu.encoders import imagebind as ji
+    from mertools_tpu.features.audio import ImageBindAudioExtractor
+    from mertools_tpu_torch.encoders import imagebind as ti
+
+    tiny = dict(embed_dim=16, num_blocks=2, num_heads=4, out_embed_dim=24)
+    cls = ti.ImageBindAudioConfig
+    monkeypatch.setattr(ti, "ImageBindAudioConfig", lambda: cls(**tiny))
+    wav_dir, wavs = _zoo_wavs(tmp_path, (11000, 50001))
+    sd = ti.init_params(cls(**tiny), torch.Generator().manual_seed(4))
+    torch.save({**sd, "modality_trunks.vision.blocks.0.attn.bias_k": torch.zeros(1, 1, 16),
+                "modality_postprocessors.audio.1.log_logit_scale": torch.tensor(3.0)},
+               tmp_path / "imagebind_huge.pth")
+    main(["--model_name", "imagebind_huge", "--pretrain_dir", str(tmp_path),
+          "--audio_dir", str(wav_dir), "--save_dir", str(tmp_path / "f"), "--device", "cpu"])
+    jcfg = ji.ImageBindAudioConfig(**tiny)
+    # the JAX sampler raises on a 50,001-sample clip (ROADMAP C), so JAX
+    # extracts the 11,000-sample one; the other is held to the port's
+    # extractor on the same weights
+    want = ImageBindAudioExtractor(jcfg, ji.convert_torch_state(jcfg, sd)).extract(
+        {"clip0": wavs["clip0"]}, "UTT")
+    from mertools_tpu_torch.features.audio import ImageBindAudioExtractor as TEx
+    want["clip1"] = TEx(cls(**tiny), sd, device="cpu").extract(
+        {"clip1": wavs["clip1"]}, "UTT")["clip1"]
+    _held_to(tmp_path / "f" / "imagebind_huge-UTT", want)
+
+
+@pytest.mark.parametrize("model,stores,dim", [
+    ("vggish", ("vggish",), 128), ("wav2vec-large", ("wav2vec-large-z", "wav2vec-large-c"), 32),
+    ("emotion2vec_base", ("emotion2vec_base",), 32), ("imagebind_huge", ("imagebind_huge",), 48)])
+def test_extract_audio_cli_zoo_random_init(tmp_path, capsys, model, stores, dim):
+    """``--random_init``: the JAX CLI's sizes (VGGish whole; wav2vec 1.0,
+    emotion2vec and ImageBind tiny) with seeded weights, finite UTT files;
+    ``--compute_dtype`` and ``--transfer_dtype int16`` are ignored with a
+    notice."""
+    wav_dir, wavs = _zoo_wavs(tmp_path)
+    main(["--model_name", model, "--audio_dir", str(wav_dir), "--save_dir",
+          str(tmp_path / "f"), "--random_init", "--device", "cpu",
+          "--compute_dtype", "bf16", "--transfer_dtype", "int16"])
+    assert capsys.readouterr().out.count("is ignored") == 2
+    for store in stores:
+        for n in wavs:
+            f = np.load(tmp_path / "f" / f"{store}-UTT" / f"{n}.npy")
+            assert f.shape == (dim,) and np.isfinite(f).all()
+
+
 def test_dataset_missing_from_registry_exits(tmp_path, monkeypatch):
     monkeypatch.delenv("MERTOOLS_TPU_CONFIG", raising=False)
     with pytest.raises(SystemExit, match="not in the path registry"):
@@ -224,14 +381,14 @@ def test_dataset_missing_from_registry_exits(tmp_path, monkeypatch):
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mertools_tpu")
-# the generation and serving slice's modules, walked like every other
-# modules the walk must find by name: the serving slice's and the e2e slice's
+# modules the walk must find by name: the serving, e2e and audio-zoo slices'
 SERVING = tuple(f"mertools_tpu_torch.{m}" for m in (
     "ops.quant", "mllm.generate", "mllm.beam", "mllm.serve", "mllm.chat",
     "mllm.convert_affectgpt", "io.xlsx", "ops.ov_metrics", "cli.inference_mllm",
     "cli.evaluation", "cli.main_ov", "cli.parity_check", "cli.translate",
     "cli.ovlabel_extraction", "models.e2e_model", "data.e2e_dataset", "core.trees",
-    "ops.align"))
+    "ops.align", "ops.fbank", "encoders.audio_zoo", "encoders.emotion2vec",
+    "encoders.imagebind"))
 
 
 def test_port_never_imports_jax():

@@ -13,10 +13,11 @@ from mertools_tpu.models import attention as j_attention
 from mertools_tpu.models import modules as j_modules
 from mertools_tpu.ops import losses as j_losses
 from mertools_tpu_torch.core.config import Args
+from mertools_tpu_torch.core.flax_init import init_flax_style
 from mertools_tpu_torch.models import get_model
 from mertools_tpu_torch.models import modules as t_modules
 from mertools_tpu_torch.models.attention import Attention
-from mertools_tpu_torch.models.base import init_flax_style, state_dict_from_flax
+from mertools_tpu_torch.models.base import state_dict_from_flax
 from mertools_tpu_torch.ops import losses as t_losses
 
 torch.set_num_threads(1)

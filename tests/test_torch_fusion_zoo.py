@@ -28,9 +28,10 @@ from mertools_tpu.models import misa as j_misa
 from mertools_tpu.ops import losses as j_losses
 from mertools_tpu.train import loop as j_loop
 from mertools_tpu_torch.core.config import Args
+from mertools_tpu_torch.core.flax_init import init_flax_style
 from mertools_tpu_torch.data.dataset import FeatureDataset
 from mertools_tpu_torch.models import get_model
-from mertools_tpu_torch.models.base import init_flax_style, state_dict_from_flax
+from mertools_tpu_torch.models.base import state_dict_from_flax
 from mertools_tpu_torch.models.mult import offset_causal_bias
 from mertools_tpu_torch.ops import losses as t_losses
 from mertools_tpu_torch.train import loop
