@@ -15,8 +15,9 @@ CLIP-ViT-L/14 vision features (224 px, patch 14, 257 tokens, hidden 1024,
 24 layers, projection 768), MER2023's trimodal pipeline, the face
 frontend that makes its face stores from frames, AffectGPT generation
 and serving at TinyLlama-1.1B width, e2e fine-tuning of HuBERT-large with
-the int8 extraction mode, and the audio encoder zoo (VGGish, wav2vec 1.0,
-emotion2vec base, ImageBind-huge audio) — and checks them:
+the int8 extraction mode, the audio encoder zoo (VGGish, wav2vec 1.0,
+emotion2vec base, ImageBind-huge audio) and the handcrafted acoustic
+sets (librosa mel/MFCC, openSMILE IS09 and eGeMAPS) — and checks them:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
@@ -168,7 +169,20 @@ emotion2vec base, ImageBind-huge audio) — and checks them:
    funasr ``.pt`` with EMA keys, an ``imagebind_huge.pth``) against the
    extractor on the same weights. It launches none of the port's kernels
    (counted): the JAX zoo's attention is a dense einsum and its spectra
-   ``jnp.fft``.
+   ``jnp.fft``;
+21. the handcrafted sets behind ``extract_handcrafted`` (librosa mel_spec
+   and mfcc, openSMILE IS09 and eGeMAPS; fp32, TF32 off): (a) each set at
+   UTT and FRA through ``extract_batch`` on phase 3's 64 clips plus 4 of
+   20-30 s (the CLI's buckets to 30 s, batch 32): clips/s (median of 3
+   passes), peak memory, a profiled 12 s bucket (idle share, top device
+   ops, eGeMAPS's Viterbi loops' share), stores finite at their dims and
+   FRA rows by the JAX rules; (b) four tone clips on the card against the
+   CPU (1e-4 of each column's max, discrete columns equal), the CPU's
+   clips/s beside the card's; (c) a ragged 6 s bucket against each clip
+   alone (IS09 and eGeMAPS, 1e-5 of max |clip|; the librosa sets printed);
+   (d) ``extract_handcrafted.main`` on 16 wavs it writes, each store equal
+   to ``extract_batch``. It launches none of the port's kernels (counted):
+   the JAX chains' spectra are ``jnp.fft`` and their products einsums.
 
     python3 chip_smoke.py --fusion-zoo
 
@@ -184,7 +198,11 @@ runs phase 19 alone (its kernel counts included),
 
     python3 chip_smoke.py --audio-zoo
 
-runs phase 20 alone (its kernel counts included), and
+runs phase 20 alone (its kernel counts included),
+
+    python3 chip_smoke.py --handcrafted
+
+runs phase 21 alone (its kernel counts included), and
 
     python3 chip_smoke.py --b3-times DIR
 
@@ -720,12 +738,11 @@ def busy_ms(events) -> float:
     return busy / 1e3
 
 
-def device_profile(torch, fn):
-    """One call of fn under torch.profiler: (wall ms, device-busy ms by
-    :func:`busy_ms`, top 5 device ops by summed time in ms, ms of each host
-    range left out, the busy ms had those ranges counted too). The profiler
-    marks a user annotation on the device timeline with
-    ``FunctionEvent.is_user_annotation``."""
+def device_events(torch, fn):
+    """One call of fn under torch.profiler: (wall ms, the device timeline's
+    events as (start us, end us, name, kind) tuples, kind "device" for
+    kernels, memcpys and memsets and "annotation" for a host range the
+    profiler draws there, ``FunctionEvent.is_user_annotation``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -735,15 +752,36 @@ def device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    evs = [(e.time_range.start, e.time_range.end, e.name,
-            "annotation" if e.is_user_annotation else "device")
-           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return wall, [(e.time_range.start, e.time_range.end, e.name,
+                   "annotation" if e.is_user_annotation else "device")
+                  for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def profile_summary(evs):
+    """(device-busy ms by :func:`busy_ms`, top 5 device ops by summed time
+    in ms, ms of each host range left out, the busy ms had those ranges
+    counted too) of :func:`device_events`' events."""
     by_kind = {"device": {}, "annotation": {}}
     for a, b, name, kind in evs:
         by_kind[kind][name] = by_kind[kind].get(name, 0.0) + (b - a) / 1e3
     top = sorted(by_kind["device"].items(), key=lambda kv: -kv[1])[:5]
     with_ranges = busy_ms([(a, b, n, "device") for a, b, n, _ in evs])
-    return wall, busy_ms(evs), top, by_kind["annotation"], with_ranges
+    return busy_ms(evs), top, by_kind["annotation"], with_ranges
+
+
+def device_profile(torch, fn):
+    """One call of fn under torch.profiler: (wall ms, then
+    :func:`profile_summary`'s four numbers)."""
+    wall, evs = device_events(torch, fn)
+    return (wall, *profile_summary(evs))
+
+
+def range_busy_ms(evs, name: str) -> float:
+    """Device-busy ms of the device events inside the host ranges called
+    ``name`` on the device timeline (each range's first to last kernel)."""
+    spans = [(a, b) for a, b, n, kind in evs if kind == "annotation" and n == name]
+    return busy_ms([e for e in evs if e[3] == "device"
+                    and any(a <= e[0] and e[1] <= b for a, b in spans)])
 
 
 def profile_line(busy: float, top, left_out: dict, with_ranges: float,
@@ -4711,6 +4749,316 @@ def audio_zoo_phase(torch, wrappers, card) -> dict:
     return counts
 
 
+# ------------------------------------------- handcrafted features (phase 21)
+HC_SETS = ("mel_spec", "mfcc", "IS09", "eGeMAPS")
+HC_LEVELS = ("UTTERANCE", "FRAME")
+HC_PASSES = 3          # timed passes a set and level; the rate printed is their median
+HC_CPU_TOL = 1e-4      # card vs CPU: max |card - cpu| <= 1e-4 max |cpu| of a column, or 1e-6
+HC_RAGGED_TOL = 1e-5   # a ragged bucket vs each clip alone, of max |clip|
+# Columns held otherwise, as in tests/test_torch_{opensmile_is09,egemaps}.py:
+# IS09's skewness and kurtosis on their own unit scale (|moment| floored at
+# 1: x - mean cancels on a steady contour), and eGeMAPS's formant widths
+# (an ill-conditioned curvature clamped at a floor, ROADMAP C3): the frame
+# column F1bandwidth at HC_BW_TOL of its max on all but HC_BW_OFF of its
+# nonzero frames, the six width functionals at HC_BW_UTT_TOL.
+HC_BW_TOL, HC_BW_OFF, HC_BW_UTT_TOL = 1e-2, 0.03, 5e-2
+HC_CLI_CLIPS = 16
+
+
+def hc_columns(fs: str, level: str):
+    """(columns that must be equal, {column: scale floor}, width columns)
+    of a set's store at a level: IS09 FRAME F0 (voicing and lag), UTT
+    maxPos / minPos and the moments; eGeMAPS FRAME F0 and F1bandwidth, UTT
+    the width functionals."""
+    if fs == "IS09" and level == "UTTERANCE":
+        return ([c * 12 + f for c in range(32) for f in (3, 4)],
+                {c * 12 + f: 1.0 for c in range(32) for f in (10, 11)}, ())
+    if fs == "IS09":
+        return [3], {}, ()
+    if fs == "eGeMAPS":
+        from mertools_tpu_torch.ops import egemaps as te
+
+        if level == "UTTERANCE":
+            return [], {}, tuple(i for i, n in enumerate(te.EGEMAPS_NAMES) if "bandwidth" in n)
+        return [te.LLD_NAMES.index("F0semitone")], {}, (te.LLD_NAMES.index("F1bandwidth"),)
+    return [], {}, ()
+
+
+def hc_stack(fs: str, level: str, feats: dict, names) -> np.ndarray:
+    """A store's clips as one (rows, D) array: the UTT vectors of the
+    openSMILE sets stacked, every other store's frames concatenated."""
+    rows = [feats[n] for n in names]
+    return np.stack(rows) if fs in ("IS09", "eGeMAPS") and level == "UTTERANCE" \
+        else np.concatenate(rows)
+
+
+def hc_gate(fs: str, level: str, got: dict, want: dict, tol: float, what: str,
+            scale_floor: float = 0.0) -> float:
+    """Holds ``got`` to ``want`` (name -> store array) column by column:
+    within ``tol`` of each column's max |want| (floored at ``scale_floor``
+    and as ``hc_columns`` says) or 1e-6, discrete columns equal, widths as
+    HC_BW_*. Returns the worst error over its allowance (<= 1); fails
+    otherwise."""
+    names = sorted(want)
+    for n in names:
+        check(got[n].shape == want[n].shape, f"{what} {fs} {level} {n}: {got[n].shape} "
+              f"vs {want[n].shape}")
+    g, w = hc_stack(fs, level, got, names), hc_stack(fs, level, want, names)
+    equal, floors, widths = hc_columns(fs, level)
+    for c in equal:
+        check(np.array_equal(g[:, c], w[:, c]), f"{what} {fs} {level}: column {c} differs")
+    worst = 0.0
+    for c in range(w.shape[1]):
+        err = np.abs(g[:, c] - w[:, c])
+        scale = max(float(np.abs(w[:, c]).max()), floors.get(c, 0.0), scale_floor)
+        if c in widths and level == "FRAME":
+            allowed = max(HC_BW_TOL * scale, 1e-6)
+            off = int((err > allowed).sum())
+            check(off <= HC_BW_OFF * max(int((w[:, c] != 0).sum()), 1),
+                  f"{what} {fs} {level}: width column {c} off on {off} frames")
+            err = err[err <= allowed]
+        else:
+            allowed = max((HC_BW_UTT_TOL if c in widths else tol) * scale, 1e-6)
+        worst = max(worst, float(err.max(initial=0.0)) / allowed)
+    check(worst <= 1.0, f"{what} {fs} {level}: {worst:.3f} of the allowance")
+    return worst
+
+
+def hc_rows(fs: str, n: int) -> int:
+    """FRAME rows of a clip of ``n`` samples by the JAX rules, after the
+    CLI's cut to 30 s: complete frames for the openSMILE sets (at least
+    one), ``n // 160 + 1`` for librosa's."""
+    n = min(n, 30 * SR)
+    if fs == "IS09":
+        return max(1 + (n - 400) // 160, 1)
+    if fs == "eGeMAPS":
+        return max(1 + (max(n, 960) - 960) // 160, 1)
+    return n // 160 + 1
+
+
+def hc_dims_gate(fs: str, level: str, feats: dict, lengths: dict) -> None:
+    """Every store finite, of the set's width, FRAME rows (and the librosa
+    sets' UTT rows) by :func:`hc_rows`."""
+    from mertools_tpu_torch.ops.handcrafted import FRAME_DIMS, UTT_DIMS
+
+    width = {"mel_spec": 128, "mfcc": 120}.get(
+        fs, (UTT_DIMS if level == "UTTERANCE" else FRAME_DIMS).get(fs))
+    for n, f in feats.items():
+        want = (width,) if fs in UTT_DIMS and level == "UTTERANCE" \
+            else (hc_rows(fs, lengths[n]), width)
+        check(f.shape == want and bool(np.isfinite(f).all()),
+              f"{fs} {level} {n}: {f.shape}, want {want}, finite")
+
+
+def handcrafted_clips():
+    """Phase 3's 64 clips of 2-10 s (PCM16, seed 0) and 4 of 20-30 s (seed
+    21, one of exactly 20 s), so the 12, 20 and 30 s buckets are reached:
+    name -> PCM16."""
+    _, wavs16, _ = bench_clips()
+    rng = np.random.default_rng(21)
+    for i, L in enumerate([20 * SR, *rng.integers(20 * SR + 1, 30 * SR + 1, size=3)]):
+        wavs16[f"long{i}"] = (rng.normal(size=int(L)) * 3000).astype(np.int16)
+    return wavs16
+
+
+def hc_tone(f0: float, n: int, seed: int, snr_db: float = 20.0) -> np.ndarray:
+    """A harmonic tone (8 partials at 0.6^k, 5 Hz vibrato of 2%) in white
+    noise at ``snr_db``, as the CPU tests draw it."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / SR
+    phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.02 * np.sin(2 * np.pi * 5 * t))) / SR
+    x = sum(0.6 ** k * np.sin((k + 1) * phase) for k in range(8))
+    x = 0.3 * x / np.abs(x).max()
+    return (x + rng.normal(size=n) * np.sqrt(np.mean(x ** 2) / 10 ** (snr_db / 10))
+            ).astype(np.float32)
+
+
+def hc_check_clips() -> dict:
+    """(b)'s four clips: a 2 s tone at 140 Hz with 0.3 s of silence, 1.7 s
+    at 380 Hz, 5 s at 400 Hz, 1 s of noise. IS09's voicing holds the 140
+    Hz tone unvoiced and the others voiced, each 0.06 or more from the
+    cutoff, so no decision sits on a tie."""
+    a = hc_tone(140.0, 2 * SR, 0)
+    a[12000:16800] = 0.0
+    noise = (np.random.default_rng(3).normal(size=SR) * 0.05).astype(np.float32)
+    return {"tone140": a, "tone380": hc_tone(380.0, 27531, 1), "tone400": hc_tone(400.0, 5 * SR, 2),
+            "noise": noise}
+
+
+def hc_alone(torch, fs: str, level: str, wav: np.ndarray, dev) -> np.ndarray:
+    """A clip's store computed alone at its exact length (no bucket)."""
+    from mertools_tpu_torch.ops import handcrafted as hc
+
+    with torch.inference_mode():
+        x = torch.from_numpy(wav)[None].to(dev)
+        n = torch.tensor([len(wav)], device=dev)
+        if fs in ("IS09", "eGeMAPS") and level == "UTTERANCE":
+            return hc.handcrafted_utt(x, n, SR, fs)[0].cpu().numpy()
+        if fs in ("IS09", "eGeMAPS"):
+            f, m = hc.handcrafted_frame(x, n, SR, fs)
+            return f[0][m[0]].cpu().numpy()
+        fn = hc.mel_spec_librosa if fs == "mel_spec" else hc.mfcc_librosa
+        return fn(x, SR)[0][: len(wav) // 160 + 1].cpu().numpy()
+
+
+def hc_profile(torch, ex, items, fs: str) -> str:
+    """One bucket's UTT extraction under the profiler: its idle share, top
+    device ops and, for eGeMAPS, the Viterbi loops' share of device-busy
+    time."""
+    from mertools_tpu_torch.ops.egemaps import VITERBI_RANGE
+
+    wall, evs = device_events(torch, lambda: ex(items, fs, "UTTERANCE", SR))
+    busy, *rest = profile_summary(evs)
+    line = f"profile of the 12 s bucket ({len(items)} clips): wall {wall:.1f} ms, " \
+        + profile_line(busy, *rest, wall)
+    if fs == "eGeMAPS":
+        vit = range_busy_ms(evs, VITERBI_RANGE)
+        span = rest[1].get(VITERBI_RANGE, float("nan"))
+        line += (f"; Viterbi loops {vit:.1f} ms busy of {busy:.1f} ({vit / busy:.3f}), their "
+                 f"range {span:.1f} ms of the {wall:.1f} ms wall")
+    return line
+
+
+def phase_handcrafted(torch, card, dev: str = "cuda", wavs16=None, check_clips=None,
+                      passes: int = HC_PASSES) -> dict:
+    """21: the handcrafted sets behind ``extract_handcrafted`` (mel_spec,
+    mfcc, IS09, eGeMAPS; fp32, TF32 off): (a) each set at UTT and FRA
+    through ``extract_batch`` on ``handcrafted_clips()``, a warm pass then
+    ``passes`` timed ones: clips/s (median, slowest-fastest), peak memory,
+    a profiled bucket, stores finite at their dims and FRA rows by the JAX
+    rules; (b) four tone clips on the card against the CPU
+    (``hc_gate`` at HC_CPU_TOL), the CPU's clips/s beside the card's; (c)
+    the 6 s bucket's rows against each clip alone at its exact length
+    (IS09, eGeMAPS gated at HC_RAGGED_TOL of max |clip|; the librosa sets
+    printed, their floor and padding depend on the buffer); (d)
+    ``extract_handcrafted.main`` on HC_CLI_CLIPS wavs it writes, each store
+    equal to ``extract_batch`` on the clips read back."""
+    from mertools_tpu_torch.cli import extract_handcrafted as cli
+    from mertools_tpu_torch.io import wav as wav_io
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    wavs16 = wavs16 if wavs16 is not None else handcrafted_clips()
+    items = [(n, w.astype(np.float32) / 32768.0) for n, w in wavs16.items()]
+    lengths = {n: len(w) for n, w in items}
+    audio_s = sum(lengths.values()) / SR
+
+    def ex(its, fs, level, sr=SR, device=dev):
+        return cli.extract_batch(its, fs, level, sr, 32, device)
+
+    bucket12 = [(n, w) for n, w in items if 8 * SR < len(w) <= 12 * SR]
+    res = {}
+    for fs in HC_SETS:
+        ex(items, fs, "UTTERANCE")          # warm every bucket's shapes
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        rate = {}
+        for level in HC_LEVELS:
+            rates = []
+            for _ in range(passes):
+                sync()
+                t0 = time.perf_counter()
+                out = ex(items, fs, level)
+                rates.append(len(items) / (time.perf_counter() - t0))
+            hc_dims_gate(fs, level, out, lengths)
+            rate[level] = sorted(rates)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+        med = {lv: r[len(r) // 2] for lv, r in rate.items()}
+        prof = hc_profile(torch, ex, bucket12, fs) if on_card else "profile not measured (no card)"
+        print(f"[21 handcrafted] {fs} (a): clips/s, the median of {passes} passes "
+              f"(slowest-fastest): UTT {med['UTTERANCE']:.2f} ({rate['UTTERANCE'][0]:.2f}-"
+              f"{rate['UTTERANCE'][-1]:.2f}), FRA {med['FRAME']:.2f} ({rate['FRAME'][0]:.2f}-"
+              f"{rate['FRAME'][-1]:.2f}) ({len(items)} clips, {audio_s:.1f} s of audio); peak "
+              f"{peak:.2f} GiB; stores finite at their dims, FRA rows by the JAX rules [{card}]",
+              flush=True)
+        print(f"[21 handcrafted] {fs} (a): {prof} [{card}]", flush=True)
+        res[fs] = {"utt_clips_s": med["UTTERANCE"], "fra_clips_s": med["FRAME"], "peak_gib": peak}
+
+    # (b) card vs CPU on four tone clips
+    tones = list((check_clips or hc_check_clips()).items())
+    for fs in HC_SETS:
+        worst, secs = {}, {"card": 0.0, "cpu": 0.0}
+        for level in HC_LEVELS:
+            sync()
+            t0 = time.perf_counter()
+            got = ex(tones, fs, level)
+            secs["card"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = ex(tones, fs, level, device="cpu")
+            secs["cpu"] += time.perf_counter() - t0
+            worst[level] = hc_gate(fs, level, got, want, HC_CPU_TOL, "card vs CPU")
+        res[fs]["cpu"] = max(worst.values())
+        print(f"[21 handcrafted] {fs} (b): card vs CPU on {len(tones)} tone clips, worst column "
+              f"at {worst['UTTERANCE']:.3f} (UTT) and {worst['FRAME']:.3f} (FRA) of its allowance "
+              f"({HC_CPU_TOL:.0e} of max |CPU|), discrete columns equal; clips/s over both "
+              f"levels: card {2 * len(tones) / secs['card']:.2f}, CPU "
+              f"{2 * len(tones) / secs['cpu']:.2f} [{card}]", flush=True)
+
+    # (c) the 6 s bucket's rows against each clip alone
+    bucket6 = [(n, w) for n, w in items if 4 * SR < len(w) <= 6 * SR]
+    for fs in HC_SETS:
+        gated = fs in ("IS09", "eGeMAPS")
+        worst = 0.0
+        for lv in HC_LEVELS:
+            batched = ex(bucket6, fs, lv)
+            for n, w in bucket6:
+                alone = hc_alone(torch, fs, lv, w, dev)
+                scale = float(np.abs(alone).max())
+                worst = max(worst, hc_gate(fs, lv, {n: batched[n]}, {n: alone}, HC_RAGGED_TOL,
+                                           "ragged vs alone", scale) if gated
+                            else float(np.abs(batched[n] - alone).max()) / scale)
+        res[fs]["ragged"] = worst
+        print(f"[21 handcrafted] {fs} (c): the 6 s bucket's {len(bucket6)} ragged rows vs each "
+              f"clip alone: " + (f"worst column at {worst:.3f} of its allowance "
+                                 f"({HC_RAGGED_TOL:.0e} of max |clip|)" if gated else
+                                 f"{worst:.3e} of max |clip| (printed, not gated: the dB floor is "
+                                 f"the batch's max and the centre padding reads the buffer)")
+              + f" [{card}]", flush=True)
+
+    # (d) extract_handcrafted.main on wavs it writes
+    names = sorted(wavs16, key=lambda n: len(wavs16[n]))
+    cli_names = names[:: max(len(names) // HC_CLI_CLIPS, 1)][:HC_CLI_CLIPS]
+    with tempfile.TemporaryDirectory() as d:
+        audio = os.path.join(d, "audio")
+        write_wavs(audio, {n: wavs16[n] for n in cli_names})
+        # in the CLI's file order, so both make the same batches row for row
+        read = [(n, wav_io.read_wav_16k(os.path.join(audio, f"{n}.wav")))
+                for n in sorted(cli_names)]
+        t0 = time.perf_counter()
+        for fs in HC_SETS:
+            for level in HC_LEVELS:
+                quiet(cli.main, [f"--feature_set={fs}", f"--feature_level={level}",
+                                 f"--audio_dir={audio}", f"--save_dir={os.path.join(d, 'f')}",
+                                 "--device", dev])
+                want = ex(read, fs, level)
+                store = os.path.join(d, "f", f"{fs}-{'UTT' if level == 'UTTERANCE' else 'FRA'}")
+                check(sorted(os.listdir(store)) == sorted(f"{n}.npy" for n in cli_names),
+                      f"CLI store {store}")
+                for n in cli_names:
+                    check(np.array_equal(np.load(os.path.join(store, f"{n}.npy")), want[n]),
+                          f"CLI {fs} {level} {n} differs from extract_batch")
+        cli_s = time.perf_counter() - t0
+    print(f"[21 handcrafted] (d): extract_handcrafted.main, 4 sets x 2 levels on {len(cli_names)} "
+          f"wavs ({cli_s:.1f} s with extract_batch's), every store equal to extract_batch on "
+          f"the clips read back [{card}]", flush=True)
+    print(f"[21 handcrafted] phase 21 took {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return res
+
+
+def handcrafted_phase(torch, wrappers, card) -> dict:
+    """Phase 21 with the kernels' counts set to 0 before it and read after
+    it: the JAX chains' spectra are ``jnp.fft`` and their products einsums,
+    outside any Pallas kernel, so no kernel of the port runs."""
+    for w in wrappers:
+        w.launches = 0
+    res = phase_handcrafted(torch, card)
+    counts = no_launches(wrappers, "phase 21")
+    print(f"[21 handcrafted] kernel launches in phase 21: {counts} [{card}]", flush=True)
+    return res
+
+
 def b3_times_of(torch, root: str) -> int:
     """Phase 9's bf16 timing lines (S 512 and S 1024), phase 2's bf16 B1
     line (kernel, SDPA with the key mask, bound) and phase 5's B2 line
@@ -4754,7 +5102,7 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--b3-times"] and len(argv) == 2:
         return b3_times_of(torch, argv[1])
     alone = {"--fusion-zoo": zoo_phase, "--serving": serving_phase, "--e2e": e2e_phase,
-             "--audio-zoo": audio_zoo_phase}
+             "--audio-zoo": audio_zoo_phase, "--handcrafted": handcrafted_phase}
     if argv and (len(argv) > 1 or argv[0] not in alone):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -4859,6 +5207,8 @@ def main(argv: list[str]) -> int:
     e2e_phase(torch, wrappers, card)
     torch.cuda.empty_cache()
     b1_paths["audio zoo (20)"] = audio_zoo_phase(torch, wrappers, card)["flash_attention"]
+    torch.cuda.empty_cache()
+    handcrafted_phase(torch, wrappers, card)
 
     b, m = kres["bf16"], mres
     kernels = [{

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -28,6 +30,13 @@ def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+@functools.lru_cache(maxsize=128)
+def on_device(build, device: torch.device, *args) -> torch.Tensor:
+    """The numpy table ``build(*args)`` as a tensor on ``device``, built and
+    uploaded once a device; callers only read it."""
+    return torch.from_numpy(np.ascontiguousarray(build(*args))).to(device)
 
 
 def to_pcm16(wav: np.ndarray) -> np.ndarray:

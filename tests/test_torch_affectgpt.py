@@ -78,7 +78,7 @@ def case(request):
     cfg = CONFIGS[name]
     batch = _batch(name, np.random.default_rng(0))
     model = ja.AffectGPT(cfg)
-    params = model.init(jax.random.PRNGKey(0), batch)["params"]
+    params = jax.jit(model.init)(jax.random.PRNGKey(0), batch)["params"]
     rng = np.random.default_rng(1)
     params = jax.tree_util.tree_map_with_path(   # LoRA B non-zero
         lambda p, leaf: (jnp.asarray(rng.normal(size=leaf.shape) * 0.05, jnp.float32)

@@ -5,6 +5,7 @@ wires — fp32 within 1e-3, bf16 within 3% — with the same Flax params
 carried across by ``state_dict_from_flax``."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ KW = dict(max_segment=400, buckets=(128, 256, 400), sample_budget=1600)
 LENGTHS = [150, 290, 400, 555, 1333, 80]
 
 
+@functools.lru_cache(maxsize=None)
 def _models(kind="base-style"):
     from transformers import HubertConfig, HubertModel
 
@@ -37,6 +39,14 @@ def _models(kind="base-style"):
     jcfg, params = jw.from_hf_torch(HubertModel(cfg).eval())
     tcfg = tw.Wav2Vec2Config(**dataclasses.asdict(jcfg))
     return jcfg, params, tcfg, tw.state_dict_from_flax(tcfg, params)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_extractor(kind, wire):
+    """The JAX extractor of a config and wire, built (and compiled for its
+    buckets) once for the module: the FRA and UTT cases share it."""
+    jcfg, params, _, _ = _models(kind)
+    return ja.AudioExtractor(jcfg, params, transfer_dtype=wire, **KW)
 
 
 def _wavs(seed=0, int16=False):
@@ -62,10 +72,9 @@ def _assert_close(got, ref, tol, rel=False):
 @pytest.mark.parametrize("wire", ["f32", "int16"])
 @pytest.mark.parametrize("level", ["FRA", "UTT"])
 def test_extractor_matches_jax(kind, wire, level):
-    jcfg, params, tcfg, sd = _models(kind)
+    _, _, tcfg, sd = _models(kind)
     wavs = _wavs(int16=wire == "int16")
-    ref = ja.AudioExtractor(jcfg, params, transfer_dtype=wire,
-                            **KW).extract(wavs, level=level)
+    ref = _jax_extractor(kind, wire).extract(wavs, level=level)
     got = ta.AudioExtractor(tcfg, sd, transfer_dtype=wire, device="cpu",
                             **KW).extract(wavs, level=level)
     _assert_close(got, ref, 1e-3)
@@ -89,9 +98,9 @@ def test_flash_on_cpu_equals_plain():
 
 @pytest.mark.parametrize("flash", [False, True], ids=["plain", "flash"])
 def test_bf16_within_3pct_of_jax_fp32(flash):
-    jcfg, params, tcfg, sd = _models("large-style")
+    _, _, tcfg, sd = _models("large-style")
     wavs = _wavs(2)
-    ref = ja.AudioExtractor(jcfg, params, **KW).extract(wavs, level="UTT")
+    ref = _jax_extractor("large-style", "f32").extract(wavs, level="UTT")
     got = ta.AudioExtractor(tcfg, sd, compute_dtype="bf16", flash=flash,
                             device="cpu", **KW).extract(wavs, level="UTT")
     _assert_close(got, ref, 0.03, rel=True)

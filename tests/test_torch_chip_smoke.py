@@ -449,30 +449,6 @@ def test_phase17_card_vs_cpu_turns_dropout_off_and_fixes_the_prior():
                                       "utt") == (0.0, 0.0)
 
 
-def test_phase17_runs_end_to_end_on_the_cpu_at_a_small_size(monkeypatch, capsys):
-    """The phase's orchestration on the CPU (no profile there) with two
-    models, narrow stores and tiny splits: every check it makes passes and
-    it prints a line for each run, top-N and the sweep."""
-    import torch
-
-    monkeypatch.setattr(chip_smoke, "ZOO_UTT", ("lmf",))
-    monkeypatch.setattr(chip_smoke, "ZOO_FRM", ("mfn",))
-    monkeypatch.setattr(chip_smoke, "FUSION_FEATURES",
-                        tuple((f, 8 + i) for i, (f, _) in enumerate(chip_smoke.FUSION_FEATURES)))
-    monkeypatch.setattr(chip_smoke, "FRM_FEATURES",
-                        tuple((f, 6 + i, lo, hi) for i, (f, _, lo, hi)
-                              in enumerate(chip_smoke.FRM_FEATURES)))
-    monkeypatch.setattr(chip_smoke, "TOPN_WIDTHS", {k: 4 for k in chip_smoke.TOPN_WIDTHS})
-    res = chip_smoke.phase_fusion_zoo(
-        torch, "cpu", dev="cpu", splits={"train": 40, "test1": 8, "test2": 8, "test3": 10},
-        epochs={"utt": 1, "frm": 1, "topn": 1, "sweep": 1})
-    out = capsys.readouterr().out
-    assert sorted(res) == ["lmf utt", "mfn frm_align", "mult frm_unalign", "sweep", "topn"]
-    assert out.count("[17 zoo] a/b:") == 3 and "[17 zoo] c: top-N" in out
-    assert "carried into both repeats" in out
-    assert all(r["wall"] > 0 for r in res.values())  # each run's last epoch, timed
-
-
 def test_phase17_times_the_runs_last_epoch_only(monkeypatch):
     """``RunProbe`` lets every epoch of a run through, times (on a card:
     profiles) only the n-th, the run's last, and each fold's start."""
@@ -576,32 +552,6 @@ def test_phase18_stand_in_tokenizer_stays_in_the_vocabulary():
     assert len(text) == len(ids) - 1 and text.isalpha()   # specials skipped
 
 
-def test_phase18_runs_end_to_end_on_the_cpu_at_a_small_size(monkeypatch, capsys):
-    """The phase's orchestration on the CPU (no profile there) at a narrow
-    geometry and small mixes: every check it makes passes (cached against
-    full forward, w8 against dequantized, int8 KV, engine against generate
-    with and without the shared prefix, beams, the CLIs) and it prints a
-    rate for each of the four generate modes and the engine."""
-    import torch
-
-    monkeypatch.setattr(chip_smoke, "CHECK_LAYERS", 2)
-    llm = dict(vocab_size=300, hidden_size=64, num_layers=3, num_heads=4, num_kv_heads=2,
-               intermediate_size=96, lora_r=2)
-    mix = {"B": 3, "lo": 40, "hi": 70, "new": (2, 12), "reps": 2}
-    engine = {"n": 5, "lo": 16, "hi": 60, "new_lo": 2, "new_hi": 6, "slots": 3,
-              "chunk": 4, "buckets": (32, 64)}
-    affect = {"video_dim": 12, "audio_dim": 10, "frames": 8, "clips": 3,
-              "qformer": dict(hidden_size=16, num_layers=1, num_heads=2,
-                              intermediate_size=32)}
-    rates = chip_smoke.phase_serving(torch, "cpu", dev="cpu", llm=llm, mix=mix,
-                                     engine=engine, affect=affect)
-    out = capsys.readouterr().out
-    assert sorted(rates) == ["bf16", "engine", "kv_int8", "w8", "w8+kv_int8"]
-    assert all(r["tok_s"] > 0 for r in rates.values())
-    assert out.count("[18 serving] a: generate") == 4
-    assert "0 of 24 differ" in out and "beams equal" in out and "texts equal" in out
-
-
 def test_phase19_tone_corpus_is_seeded_and_two_classes():
     a, labels_a = chip_smoke.tone_corpus(np.random.default_rng(0), 6, 2.0, 3.0)
     b, _ = chip_smoke.tone_corpus(np.random.default_rng(0), 6, 2.0, 3.0)
@@ -652,39 +602,6 @@ def test_phase19_int8_gate(bf16, int8, ok):
     else:
         with pytest.raises(RuntimeError, match="19d x UTT int8 vs fp32"):
             chip_smoke.int8_gate(d, "19d x")
-
-
-def test_phase19_runs_end_to_end_on_the_cpu_at_a_small_size(capsys):
-    """The phase's orchestration on the CPU (no profile or peak memory
-    there) at narrow widths and small sizes: every check it makes passes
-    (losses, the saved backbone, card vs CPU, the read-back and the
-    refusal, the int8 gate and sites) and it prints each part."""
-    import torch
-
-    from mertools_tpu_torch.encoders.bert import BertConfig
-    from mertools_tpu_torch.encoders.vit_clip import CLIPVisionConfig
-    from mertools_tpu_torch.encoders.wav2vec2 import Wav2Vec2Config
-
-    acfg = Wav2Vec2Config(hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
-                          intermediate_size=48, conv_dim=(16,) * 7,
-                          conv_kernel=(10, 3, 3, 3, 3, 2, 2), conv_stride=(5, 2, 2, 2, 2, 2, 2),
-                          num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=2,
-                          feat_extract_norm="layer", do_stable_layer_norm=True, conv_bias=True)
-    tcfg = BertConfig(hidden_size=16, num_hidden_layers=3, num_attention_heads=2,
-                      intermediate_size=32)
-    vcfg = CLIPVisionConfig(hidden_size=16, num_hidden_layers=3, num_attention_heads=2,
-                            intermediate_size=32, image_size=32, patch_size=16,
-                            projection_dim=12)
-    audio = dict(chip_smoke.E2E_AUDIO, clips=12, lo_s=0.3, hi_s=0.5, nseg=2, seglen=3200,
-                 batch=4, fallback_batch=2)
-    chip_smoke.phase_e2e(torch, "cpu", "cpu", acfg, tcfg, vcfg, audio=audio,
-                         text_vision=dict(text_clips=12, video_clips=8, batch=4),
-                         int8_sizes=(4, 2))
-    out = capsys.readouterr().out
-    for part in ("a: main_release", "a: card vs CPU", "b: extract_audio", "d: int8 at"):
-        assert out.count(f"[19 e2e] {part}") == 1, part
-    assert out.count("[19 e2e] c: ") == 2 and out.count("[19 e2e] d: ") == 3
-    assert "leaf shapes do not match the selected model architecture" in out
 
 
 def test_phase17_reads_each_store_once_and_restores_the_reader(tmp_path):
@@ -804,34 +721,127 @@ def test_phase20_checkpoint_writer_key_layout(tmp_path, monkeypatch, family):
     assert got.keys() == sd.keys() and all(torch.equal(got[k], sd[k]) for k in sd)
 
 
-def test_phase20_runs_end_to_end_on_the_cpu_at_a_small_size(monkeypatch, capsys):
-    """The phase's orchestration on the CPU (no profile or peak memory
-    there): VGGish at its published width, emotion2vec narrowed, and
-    wav2vec 1.0 and ImageBind narrowed where their loaders fix their
-    configs, on six short clips and one of 10.6 s; every check passes and
-    each part prints."""
+def test_phase21_clips_reach_the_cli_buckets_to_30_s():
+    """Phase 3's 64 clips and 4 seeded ones of 20-30 s (one of exactly 20
+    s): the CLI's 12, 20 and 30 s buckets are reached, and the draw
+    repeats."""
+    from mertools_tpu_torch.cli.extract_handcrafted import BUCKET_S, _buckets
+
+    a, b = chip_smoke.handcrafted_clips(), chip_smoke.handcrafted_clips()
+    _, bench, _ = chip_smoke.bench_clips()
+    assert len(a) == 68 and all(np.array_equal(a[n], bench[n]) for n in bench)
+    assert all(np.array_equal(a[n], b[n]) and a[n].dtype == np.int16 for n in a)
+    assert all(20 * 16000 <= len(a[f"long{i}"]) <= 30 * 16000 for i in range(4))
+    full = {e: g for e, g in _buckets(list(a.items()), [16000 * s for s in BUCKET_S]).items() if g}
+    assert {12 * 16000, 20 * 16000, 30 * 16000} <= set(full)
+
+
+def test_phase21_check_clips_keep_is09_voicing_off_its_cutoff():
+    """(b)'s tones sit 0.06 or more from IS09's 0.55 voicing cutoff on
+    every frame, so the card and the CPU cannot split on a tie."""
     import torch
 
-    from mertools_tpu_torch.encoders import audio_zoo
-    from mertools_tpu_torch.encoders.emotion2vec import CONV_LAYERS_BASE
+    from mertools_tpu_torch.ops import opensmile_is09 as t9
+    from mertools_tpu_torch.ops.fbank import frame_signal
 
-    _tiny_imagebind(monkeypatch)
-    w2v1 = audio_zoo.Wav2Vec1Config
-    monkeypatch.setattr(audio_zoo, "Wav2Vec1Config", lambda **kw: w2v1(**{
-        **dict(enc_layers=((32, 10, 5), (32, 8, 4)), ctx_layers=((32, 3), (32, 3))), **kw}))
-    rng = np.random.default_rng(0)
-    wavs16 = {f"c{i}": (rng.normal(size=int(n)) * 3000).astype(np.int16)
-              for i, n in enumerate(rng.integers(6000, 20000, size=6))}
-    wavs16["long"] = (rng.normal(size=170000) * 3000).astype(np.int16)
-    e2v = dict(conv_layers=tuple((16, k, s) for _, k, s in CONV_LAYERS_BASE), hidden_size=48,
-               prenet_depth=1, depth=2, conv_pos_depth=2, conv_pos_width=10,
-               conv_pos_groups=4)
-    res = chip_smoke.phase_audio_zoo(torch, "cpu", "cpu", wavs16=wavs16,
-                                     configs={"emotion2vec": e2v}, n_check=2, n_cli=2)
-    out = capsys.readouterr().out
-    assert sorted(res) == sorted(chip_smoke.ZOO_FAMILIES)
-    for family in chip_smoke.ZOO_FAMILIES:
-        assert out.count(f"[20 audio zoo] {family} (a): ") == 2
-        assert out.count(f"[20 audio zoo] {family} (b) card vs CPU") == 1
-    assert out.count("(c) ragged vs alone: not run") == 2
-    assert "wav2vec-large-z-FRA, wav2vec-large-c-FRA" in out
+    for name, w in chip_smoke.hc_check_clips().items():
+        if name == "noise":
+            continue
+        x = torch.from_numpy(w)[None]
+        raw = frame_signal(x, t9.n_frames(len(w)), 400, 160)
+        mag = torch.fft.rfft(t9.preemphasis_htk(raw) * torch.from_numpy(t9.hamming(400)),
+                             n=512).abs()
+        acf = torch.fft.irfft(mag ** 2, n=512)
+        vp = (acf[..., 32:256] / (acf[..., :1] + 1e-12)).amax(-1).clamp(0, 1)
+        assert float((vp - 0.55).abs().min()) >= 0.06, name
+
+
+def test_phase21_rows_are_the_jax_frame_counts():
+    from mertools_tpu.ops import egemaps as je
+    from mertools_tpu.ops import opensmile_is09 as j9
+
+    for n in (1, 300, 400, 959, 960, 1121, 16000, 30 * 16000, 45 * 16000):
+        m = min(n, 30 * 16000)
+        assert chip_smoke.hc_rows("IS09", n) == j9.n_frames(m)
+        assert chip_smoke.hc_rows("eGeMAPS", n) == je.n_frames(m)
+        assert chip_smoke.hc_rows("mfcc", n) == m // 160 + 1
+
+
+def _stores(fs, level, seed=0):
+    from mertools_tpu_torch.ops.handcrafted import FRAME_DIMS, UTT_DIMS
+
+    rng = np.random.default_rng(seed)
+    if level == "UTTERANCE":
+        return {f"c{i}": rng.normal(size=UTT_DIMS[fs]).astype(np.float32) + 2 for i in range(3)}
+    return {f"c{i}": rng.normal(size=(40 + i, FRAME_DIMS[fs])).astype(np.float32) + 2
+            for i in range(3)}
+
+
+@pytest.mark.parametrize("fs,level", [("IS09", "UTTERANCE"), ("IS09", "FRAME"),
+                                      ("eGeMAPS", "UTTERANCE"), ("eGeMAPS", "FRAME")])
+def test_phase21_gate_fails_on_each_kind_of_fault(fs, level):
+    """``hc_gate`` passes a store against itself and within tolerance, and
+    fails on a column off by more than its allowance, a discrete column
+    one ulp off, a width column off on too many frames, and a shape."""
+    want = _stores(fs, level)
+    assert chip_smoke.hc_gate(fs, level, want, want, 1e-4, "x") == 0.0
+    near = {n: w * (1 + 5e-5) for n, w in want.items()}
+    equal, _, widths = chip_smoke.hc_columns(fs, level)
+    for n in near:
+        near[n][..., equal] = want[n][..., equal]
+    assert chip_smoke.hc_gate(fs, level, near, want, 1e-4, "x") <= 1.0
+    rest = [c for c in range(next(iter(want.values())).shape[-1]) if c not in widths + tuple(equal)]
+    off = {n: w.copy() for n, w in want.items()}
+    off["c1"][..., rest[0]] += 1e-3 * max(np.abs(w[..., rest[0]]).max() for w in want.values())
+    with pytest.raises(RuntimeError, match="allowance"):
+        chip_smoke.hc_gate(fs, level, off, want, 1e-4, "x")
+    if equal:
+        ulp = {n: w.copy() for n, w in want.items()}
+        ulp["c2"][..., equal[0]] = np.nextafter(ulp["c2"][..., equal[0]], np.float32(np.inf))
+        with pytest.raises(RuntimeError, match=f"column {equal[0]} differs"):
+            chip_smoke.hc_gate(fs, level, ulp, want, 1e-4, "x")
+    if widths and level == "FRAME":
+        wide = {n: w.copy() for n, w in want.items()}
+        wide["c0"][:5, widths[0]] *= 1.5          # 5 of 123 frames, over 3%
+        with pytest.raises(RuntimeError, match="off on 5 frames"):
+            chip_smoke.hc_gate(fs, level, wide, want, 1e-4, "x")
+        wide["c0"][:2, widths[0]] = want["c0"][:2, widths[0]]   # 3 frames: within
+        assert chip_smoke.hc_gate(fs, level, wide, want, 1e-4, "x") <= 1.0
+    short = dict(want, c0=want["c0"][:-1])
+    with pytest.raises(RuntimeError, match="c0"):
+        chip_smoke.hc_gate(fs, level, short, want, 1e-4, "x")
+
+
+def test_phase21_gate_holds_is09_moments_on_their_unit_scale():
+    """An IS09 skewness of 0.07 may move by 1e-4 x 1 (not x 0.07)."""
+    want = _stores("IS09", "UTTERANCE")
+    skew = 3 * 12 + 10
+    for w in want.values():
+        w[skew] = 0.07
+    got = {n: w.copy() for n, w in want.items()}
+    got["c0"][skew] += 5e-5
+    assert chip_smoke.hc_gate("IS09", "UTTERANCE", got, want, 1e-4, "x") == pytest.approx(0.5, rel=1e-3)
+    got["c0"][skew] += 1e-4
+    with pytest.raises(RuntimeError, match="allowance"):
+        chip_smoke.hc_gate("IS09", "UTTERANCE", got, want, 1e-4, "x")
+
+
+def test_phase21_dims_gate_fails_on_rows_width_or_nan():
+    lengths = {"a": 32000, "b": 300}
+    ok = {"a": np.zeros((198, 32), np.float32), "b": np.zeros((1, 32), np.float32)}
+    chip_smoke.hc_dims_gate("IS09", "FRAME", ok, lengths)
+    for bad in ({"a": np.zeros((197, 32), np.float32)}, {"a": np.zeros((198, 31), np.float32)},
+                {"a": np.full((198, 32), np.nan, np.float32)}):
+        with pytest.raises(RuntimeError, match="a: "):
+            chip_smoke.hc_dims_gate("IS09", "FRAME", {**ok, **bad}, lengths)
+    chip_smoke.hc_dims_gate("mfcc", "UTTERANCE", {"a": np.zeros((201, 120), np.float32)},
+                            {"a": 32000})
+    chip_smoke.hc_dims_gate("eGeMAPS", "UTTERANCE", {"a": np.zeros(88, np.float32)}, {"a": 1})
+
+
+def test_phase21_range_busy_counts_the_kernels_inside_a_named_range():
+    evs = [(0.0, 100.0, "egemaps.viterbi", "annotation"), (10.0, 30.0, "k1", "device"),
+           (20.0, 40.0, "k2", "device"), (150.0, 170.0, "k3", "device"),
+           (90.0, 120.0, "k4", "device")]
+    assert chip_smoke.range_busy_ms(evs, "egemaps.viterbi") == pytest.approx(0.03)
+    assert chip_smoke.range_busy_ms(evs, "other") == 0.0

@@ -381,14 +381,16 @@ def test_dataset_missing_from_registry_exits(tmp_path, monkeypatch):
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mertools_tpu")
-# modules the walk must find by name: the serving, e2e and audio-zoo slices'
+# modules the walk must find by name: the serving, e2e, audio-zoo and
+# handcrafted slices'
 SERVING = tuple(f"mertools_tpu_torch.{m}" for m in (
     "ops.quant", "mllm.generate", "mllm.beam", "mllm.serve", "mllm.chat",
     "mllm.convert_affectgpt", "io.xlsx", "ops.ov_metrics", "cli.inference_mllm",
     "cli.evaluation", "cli.main_ov", "cli.parity_check", "cli.translate",
     "cli.ovlabel_extraction", "models.e2e_model", "data.e2e_dataset", "core.trees",
     "ops.align", "ops.fbank", "encoders.audio_zoo", "encoders.emotion2vec",
-    "encoders.imagebind"))
+    "encoders.imagebind", "ops.handcrafted", "ops.opensmile_is09", "ops.egemaps",
+    "cli.extract_handcrafted"))
 
 
 def test_port_never_imports_jax():

@@ -135,7 +135,7 @@ def _affectgpt(vocab, seed=0):
     params = jax.tree_util.tree_map_with_path(
         lambda p, leaf: (np.float32(rng.normal(size=leaf.shape) * 0.1)
                          if getattr(p[-1], "key", None) == "lora_b" else leaf),
-        model.init(jax.random.PRNGKey(seed), batch)["params"])
+        jax.jit(model.init)(jax.random.PRNGKey(seed), batch)["params"])
     return cfg, model, params
 
 

@@ -80,11 +80,10 @@ def test_converter_gives_the_jax_converted_weights(case):
 
     batch = _stream_batch(rng, Dv, Da)
     jmodel = JAffectGPT(jcfg)
-    params = jconv.apply_checkpoint(jmodel.init(jax.random.PRNGKey(0), batch)["params"],
-                                    glue, lora)
+    init = jmodel.init(jax.random.PRNGKey(0), batch)["params"]
+    params = jconv.apply_checkpoint(init, glue, lora)
     port = ta.AffectGPT(tcfg)
-    port.load_state_dict(ta.state_dict_from_flax(tcfg, jmodel.init(
-        jax.random.PRNGKey(0), batch)["params"]))
+    port.load_state_dict(ta.state_dict_from_flax(tcfg, init))
     tconv.apply_checkpoint(port, state)
     want = ta.state_dict_from_flax(tcfg, params)
     for k, v in port.state_dict().items():

@@ -73,7 +73,7 @@ def case(request):
     name = request.param
     cfg = CONFIGS[name]
     model = ja.AffectGPT(cfg)
-    params = model.init(jax.random.PRNGKey(0), _init_batch(name))["params"]
+    params = jax.jit(model.init)(jax.random.PRNGKey(0), _init_batch(name))["params"]
     rng = np.random.default_rng(1)
     params = jax.tree_util.tree_map_with_path(   # LoRA B non-zero
         lambda p, leaf: (jnp.asarray(rng.normal(size=leaf.shape) * 0.1, jnp.float32)

@@ -48,7 +48,7 @@ def _setup(tmp_path, accum):
     model = ja.AffectGPT(CFG)
     # a host copy: the JAX train step donates (deletes) the state it is given
     params = jax.tree_util.tree_map(
-        np.array, model.init(jax.random.PRNGKey(0), batches[0])["params"])
+        np.array, jax.jit(model.init)(jax.random.PRNGKey(0), batches[0])["params"])
     rcfg = dict(max_epoch=1, iters_per_epoch=4 if accum > 1 else 3, batch_size=2,
                 accum_grad_iters=accum, init_lr=1e-2, min_lr=1e-3,
                 warmup_steps=2, weight_decay=0.05)
