@@ -17,7 +17,8 @@ frontend that makes its face stores from frames, AffectGPT generation
 and serving at TinyLlama-1.1B width, e2e fine-tuning of HuBERT-large with
 the int8 extraction mode, the audio encoder zoo (VGGish, wav2vec 1.0,
 emotion2vec base, ImageBind-huge audio) and the handcrafted acoustic
-sets (librosa mel/MFCC, openSMILE IS09 and eGeMAPS) — and checks them:
+sets (librosa mel/MFCC, openSMILE IS09, IS10, IS13 and eGeMAPS) — and
+checks them:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
@@ -171,15 +172,17 @@ sets (librosa mel/MFCC, openSMILE IS09 and eGeMAPS) — and checks them:
    (counted): the JAX zoo's attention is a dense einsum and its spectra
    ``jnp.fft``;
 21. the handcrafted sets behind ``extract_handcrafted`` (librosa mel_spec
-   and mfcc, openSMILE IS09 and eGeMAPS; fp32, TF32 off): (a) each set at
-   UTT and FRA through ``extract_batch`` on phase 3's 64 clips plus 4 of
-   20-30 s (the CLI's buckets to 30 s, batch 32): clips/s (median of 3
-   passes), peak memory, a profiled 12 s bucket (idle share, top device
-   ops, eGeMAPS's Viterbi loops' share), stores finite at their dims and
-   FRA rows by the JAX rules; (b) four tone clips on the card against the
-   CPU (1e-4 of each column's max, discrete columns equal), the CPU's
-   clips/s beside the card's; (c) a ragged 6 s bucket against each clip
-   alone (IS09 and eGeMAPS, 1e-5 of max |clip|; the librosa sets printed);
+   and mfcc, openSMILE IS09, IS10, IS13 and eGeMAPS; fp32, TF32 off): (a)
+   each set at UTT and FRA through ``extract_batch`` on phase 3's 64 clips
+   plus 4 of 20-30 s (the CLI's buckets to 30 s, batch 32): clips/s (median
+   of 3 passes), peak memory, stores finite at their dims and FRA rows by
+   the JAX rules, then a 12 s bucket of every set in one profiler session
+   (idle share, top device ops, the Viterbi and RASTA loops' shares); (b)
+   four tone clips on the card against the CPU (1e-4 of each column's max,
+   discrete columns equal; IS10's and IS13's functionals off it printed
+   with the account ``hc_explain`` gives them), the CPU's clips/s beside
+   the card's; (c) a ragged 6 s bucket against each clip alone (the
+   openSMILE sets, 1e-5 of max |clip|; the librosa sets printed);
    (d) ``extract_handcrafted.main`` on 16 wavs it writes, each store equal
    to ``extract_batch``. It launches none of the port's kernels (counted):
    the JAX chains' spectra are ``jnp.fft`` and their products einsums.
@@ -239,6 +242,11 @@ import wave
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# phase 21's comparison rule, shared with the CPU tests that hold the port
+# to the JAX package by it
+sys.path.insert(0, os.path.join(HERE, "tests"))
+from hc_gates import (HC_RAGGED_TOL, hc_explain, hc_gate,  # noqa: E402,F401
+                      hc_columns, port_engine)
 SR = 16000
 KERNEL_TOL = {"fp32": 2e-5, "bf16": 1e-2}  # max|kernel - ref| / max|ref|
 # B2: both sides fp32 FFTs (the kernel's own vs cuFFT), so rounding only
@@ -776,12 +784,18 @@ def device_profile(torch, fn):
     return (wall, *profile_summary(evs))
 
 
-def range_busy_ms(evs, name: str) -> float:
-    """Device-busy ms of the device events inside the host ranges called
-    ``name`` on the device timeline (each range's first to last kernel)."""
-    spans = [(a, b) for a, b, n, kind in evs if kind == "annotation" and n == name]
-    return busy_ms([e for e in evs if e[3] == "device"
-                    and any(a <= e[0] and e[1] <= b for a, b in spans)])
+def linked_busy_ms(ops, spans) -> tuple[float, dict]:
+    """Device ms of the kernels, memcpys and memsets that the host ops
+    inside any of ``spans`` (start, end us on the host clock) launched, in
+    all and by name. The profiler links each device event to the op that
+    launched it, so this needs no alignment of the device's clock with the
+    host's; on one stream the sum is the busy time."""
+    by = {}
+    for e in ops:
+        if e.kernels and any(a <= e.time_range.start and e.time_range.end <= b for a, b in spans):
+            for k in e.kernels:
+                by[k.name] = by.get(k.name, 0.0) + k.duration / 1e3
+    return sum(by.values()), by
 
 
 def profile_line(busy: float, top, left_out: dict, with_ranges: float,
@@ -4750,78 +4764,12 @@ def audio_zoo_phase(torch, wrappers, card) -> dict:
 
 
 # ------------------------------------------- handcrafted features (phase 21)
-HC_SETS = ("mel_spec", "mfcc", "IS09", "eGeMAPS")
+HC_SETS = ("mel_spec", "mfcc", "IS09", "eGeMAPS", "IS10", "IS13")
+HC_OPENSMILE = ("IS09", "eGeMAPS", "IS10", "IS13")
 HC_LEVELS = ("UTTERANCE", "FRAME")
 HC_PASSES = 3          # timed passes a set and level; the rate printed is their median
 HC_CPU_TOL = 1e-4      # card vs CPU: max |card - cpu| <= 1e-4 max |cpu| of a column, or 1e-6
-HC_RAGGED_TOL = 1e-5   # a ragged bucket vs each clip alone, of max |clip|
-# Columns held otherwise, as in tests/test_torch_{opensmile_is09,egemaps}.py:
-# IS09's skewness and kurtosis on their own unit scale (|moment| floored at
-# 1: x - mean cancels on a steady contour), and eGeMAPS's formant widths
-# (an ill-conditioned curvature clamped at a floor, ROADMAP C3): the frame
-# column F1bandwidth at HC_BW_TOL of its max on all but HC_BW_OFF of its
-# nonzero frames, the six width functionals at HC_BW_UTT_TOL.
-HC_BW_TOL, HC_BW_OFF, HC_BW_UTT_TOL = 1e-2, 0.03, 5e-2
 HC_CLI_CLIPS = 16
-
-
-def hc_columns(fs: str, level: str):
-    """(columns that must be equal, {column: scale floor}, width columns)
-    of a set's store at a level: IS09 FRAME F0 (voicing and lag), UTT
-    maxPos / minPos and the moments; eGeMAPS FRAME F0 and F1bandwidth, UTT
-    the width functionals."""
-    if fs == "IS09" and level == "UTTERANCE":
-        return ([c * 12 + f for c in range(32) for f in (3, 4)],
-                {c * 12 + f: 1.0 for c in range(32) for f in (10, 11)}, ())
-    if fs == "IS09":
-        return [3], {}, ()
-    if fs == "eGeMAPS":
-        from mertools_tpu_torch.ops import egemaps as te
-
-        if level == "UTTERANCE":
-            return [], {}, tuple(i for i, n in enumerate(te.EGEMAPS_NAMES) if "bandwidth" in n)
-        return [te.LLD_NAMES.index("F0semitone")], {}, (te.LLD_NAMES.index("F1bandwidth"),)
-    return [], {}, ()
-
-
-def hc_stack(fs: str, level: str, feats: dict, names) -> np.ndarray:
-    """A store's clips as one (rows, D) array: the UTT vectors of the
-    openSMILE sets stacked, every other store's frames concatenated."""
-    rows = [feats[n] for n in names]
-    return np.stack(rows) if fs in ("IS09", "eGeMAPS") and level == "UTTERANCE" \
-        else np.concatenate(rows)
-
-
-def hc_gate(fs: str, level: str, got: dict, want: dict, tol: float, what: str,
-            scale_floor: float = 0.0) -> float:
-    """Holds ``got`` to ``want`` (name -> store array) column by column:
-    within ``tol`` of each column's max |want| (floored at ``scale_floor``
-    and as ``hc_columns`` says) or 1e-6, discrete columns equal, widths as
-    HC_BW_*. Returns the worst error over its allowance (<= 1); fails
-    otherwise."""
-    names = sorted(want)
-    for n in names:
-        check(got[n].shape == want[n].shape, f"{what} {fs} {level} {n}: {got[n].shape} "
-              f"vs {want[n].shape}")
-    g, w = hc_stack(fs, level, got, names), hc_stack(fs, level, want, names)
-    equal, floors, widths = hc_columns(fs, level)
-    for c in equal:
-        check(np.array_equal(g[:, c], w[:, c]), f"{what} {fs} {level}: column {c} differs")
-    worst = 0.0
-    for c in range(w.shape[1]):
-        err = np.abs(g[:, c] - w[:, c])
-        scale = max(float(np.abs(w[:, c]).max()), floors.get(c, 0.0), scale_floor)
-        if c in widths and level == "FRAME":
-            allowed = max(HC_BW_TOL * scale, 1e-6)
-            off = int((err > allowed).sum())
-            check(off <= HC_BW_OFF * max(int((w[:, c] != 0).sum()), 1),
-                  f"{what} {fs} {level}: width column {c} off on {off} frames")
-            err = err[err <= allowed]
-        else:
-            allowed = max((HC_BW_UTT_TOL if c in widths else tol) * scale, 1e-6)
-        worst = max(worst, float(err.max(initial=0.0)) / allowed)
-    check(worst <= 1.0, f"{what} {fs} {level}: {worst:.3f} of the allowance")
-    return worst
 
 
 def hc_rows(fs: str, n: int) -> int:
@@ -4829,7 +4777,7 @@ def hc_rows(fs: str, n: int) -> int:
     CLI's cut to 30 s: complete frames for the openSMILE sets (at least
     one), ``n // 160 + 1`` for librosa's."""
     n = min(n, 30 * SR)
-    if fs == "IS09":
+    if fs in ("IS09", "IS10", "IS13"):
         return max(1 + (n - 400) // 160, 1)
     if fs == "eGeMAPS":
         return max(1 + (max(n, 960) - 960) // 160, 1)
@@ -4885,54 +4833,147 @@ def hc_check_clips() -> dict:
             "noise": noise}
 
 
-def hc_alone(torch, fs: str, level: str, wav: np.ndarray, dev) -> np.ndarray:
-    """A clip's store computed alone at its exact length (no bucket)."""
+def hc_alone(torch, fs: str, wav: np.ndarray, dev) -> dict:
+    """A clip's stores at both levels computed alone at its exact length (no
+    bucket); an openSMILE set's from one contour computation."""
     from mertools_tpu_torch.ops import handcrafted as hc
 
     with torch.inference_mode():
         x = torch.from_numpy(wav)[None].to(dev)
         n = torch.tensor([len(wav)], device=dev)
-        if fs in ("IS09", "eGeMAPS") and level == "UTTERANCE":
-            return hc.handcrafted_utt(x, n, SR, fs)[0].cpu().numpy()
-        if fs in ("IS09", "eGeMAPS"):
-            f, m = hc.handcrafted_frame(x, n, SR, fs)
-            return f[0][m[0]].cpu().numpy()
+        if fs in HC_OPENSMILE:
+            utt, f, m = hc.handcrafted_levels(x, n, SR, fs)
+            return {"UTTERANCE": utt[0].cpu().numpy(), "FRAME": f[0][m[0]].cpu().numpy()}
         fn = hc.mel_spec_librosa if fs == "mel_spec" else hc.mfcc_librosa
-        return fn(x, SR)[0][: len(wav) // 160 + 1].cpu().numpy()
+        frames = fn(x, SR)[0][: len(wav) // 160 + 1].cpu().numpy()
+        return {"UTTERANCE": frames, "FRAME": frames}
 
 
-def hc_profile(torch, ex, items, fs: str) -> str:
-    """One bucket's UTT extraction under the profiler: its idle share, top
-    device ops and, for eGeMAPS, the Viterbi loops' share of device-busy
-    time."""
+def hc_profiles(torch, ex, items, sets) -> dict:
+    """Each set's UTT extraction of one bucket, all in one profiler session
+    (each set in its own host range): per set a line with its idle share,
+    top device ops and the busy ms of the Viterbi (eGeMAPS, IS10, IS13) and
+    RASTA (IS13) loops, the device time taken from what each range's host
+    ops launched (``linked_busy_ms``); a set whose ops launched nothing the
+    profiler recorded says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
     from mertools_tpu_torch.ops.egemaps import VITERBI_RANGE
+    from mertools_tpu_torch.ops.opensmile_is13 import RASTA_RANGE
 
-    wall, evs = device_events(torch, lambda: ex(items, fs, "UTTERANCE", SR))
-    busy, *rest = profile_summary(evs)
-    line = f"profile of the 12 s bucket ({len(items)} clips): wall {wall:.1f} ms, " \
-        + profile_line(busy, *rest, wall)
-    if fs == "eGeMAPS":
-        vit = range_busy_ms(evs, VITERBI_RANGE)
-        span = rest[1].get(VITERBI_RANGE, float("nan"))
-        line += (f"; Viterbi loops {vit:.1f} ms busy of {busy:.1f} ({vit / busy:.3f}), their "
-                 f"range {span:.1f} ms of the {wall:.1f} ms wall")
-    return line
+    walls = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fs in sets:
+            with record_function(f"hc.{fs}"):
+                t0 = time.perf_counter()
+                ex(items, fs, "UTTERANCE")
+                torch.cuda.synchronize()
+                walls[fs] = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def spans_of(name):
+        return [(e.time_range.start, e.time_range.end) for e in ops if e.name == name]
+
+    lines = {}
+    for fs in sets:
+        (a, b), = spans_of(f"hc.{fs}")
+        busy, by = linked_busy_ms(ops, [(a, b)])
+        head = f"profile of the 12 s bucket ({len(items)} clips): wall {walls[fs]:.1f} ms, "
+        if not busy:
+            lines[fs] = head + ("no device event linked to its host ops recorded: idle share "
+                                "not measured")
+            continue
+        tops = ", ".join(f"{n[:60]} {t:.1f} ms" for n, t in
+                         sorted(by.items(), key=lambda kv: -kv[1])[:5])
+        line = head + (f"device busy {busy:.1f} ms (the kernels, memcpys and memsets its host "
+                       f"ops launched), idle share {1 - busy / walls[fs]:.3f}; top device ops: "
+                       f"{tops}")
+        for label, rng in (("Viterbi", VITERBI_RANGE), ("RASTA", RASTA_RANGE)):
+            loops = [(s, t) for s, t in spans_of(rng) if a <= s and t <= b]
+            if loops:
+                loop, _ = linked_busy_ms(ops, loops)
+                line += (f"; {label} loop {loop:.1f} ms busy of {busy:.1f} ({loop / busy:.3f}), "
+                         f"its host range {sum(t - s for s, t in loops) / 1e3:.1f} ms of the "
+                         f"{walls[fs]:.1f} ms wall")
+        lines[fs] = line
+    return lines
+
+
+def hc_utt_gate(torch, fs: str, items, dev, tol: float, what: str):
+    """IS10 / IS13 UTT functionals on ``dev`` against the CPU by
+    :func:`hc_explain`, a bucket batch at a time (the batches
+    ``extract_batch`` makes), each side's from one contour pass on its
+    device, the CPU's engine as the reference (float64 too, so "rounding"
+    is an account): (worst column over its allowance, the columns off it
+    with their accounts, {device: seconds})."""
+    from mertools_tpu_torch.cli.extract_handcrafted import BUCKET_S, _buckets
+    from mertools_tpu_torch.ops import opensmile_is10 as t10
+    from mertools_tpu_torch.ops import opensmile_is13 as t13
+
+    mod = t10 if fs == "IS10" else t13
+    worst, explained, secs = 0.0, [], {"card": 0.0, "cpu": 0.0}
+    engine, engine64 = port_engine(fs), port_engine(fs, True)
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
+
+    def run(x, n, side):
+        t0 = time.perf_counter()
+        parts = mod._lld_core(x, n)
+        utt = mod.utt_functionals(*parts).cpu().numpy()
+        sync()
+        secs[side] += time.perf_counter() - t0
+        cpu = [{k: v.cpu() for k, v in p.items()} if isinstance(p, dict) else p.cpu()
+               for p in parts]
+        return utt, mod.functional_blocks(*cpu)
+
+    with torch.inference_mode():
+        for edge, group in _buckets(items, [SR * s for s in BUCKET_S]).items():
+            for i in range(0, len(group), 32):
+                part = group[i: i + 32]
+                wavs = np.zeros((len(part), edge), np.float32)
+                for j, (_, w) in enumerate(part):
+                    wavs[j, : len(w)] = w
+                x, n = torch.from_numpy(wavs), torch.tensor([len(w) for _, w in part])
+                got, got_blocks = run(x.to(dev), n.to(dev), "card")
+                want, want_blocks = run(x, n, "cpu")
+                w_, ex_ = hc_explain(fs, got, want, got_blocks, want_blocks, engine, tol, what,
+                                     engine64)
+                worst = max(worst, w_)
+                explained += [(part[e[1]][0], *e) for e in ex_]
+    return worst, explained, secs
+
+
+def hc_accounts(explained) -> str:
+    """(b)'s words for the columns off HC_CPU_TOL: each account's count, its
+    largest detail (the distance in the account's unit, which it holds to
+    its slack) and its first entries with the clip, both values and the
+    detail."""
+    if not explained:
+        return "none off it"
+    by = {}
+    for clip, name, _, how, g, w, detail in explained:
+        by.setdefault(how, []).append((detail, f"{name} on {clip} {g:.6g} vs {w:.6g} "
+                                               f"({detail:.3g})"))
+    return "; ".join(f"{how} {len(v)} (largest {max(d for d, _ in v):.3g}): "
+                     + ", ".join(t for _, t in v[:4]) for how, v in sorted(by.items()))
 
 
 def phase_handcrafted(torch, card, dev: str = "cuda", wavs16=None, check_clips=None,
                       passes: int = HC_PASSES) -> dict:
     """21: the handcrafted sets behind ``extract_handcrafted`` (mel_spec,
-    mfcc, IS09, eGeMAPS; fp32, TF32 off): (a) each set at UTT and FRA
-    through ``extract_batch`` on ``handcrafted_clips()``, a warm pass then
-    ``passes`` timed ones: clips/s (median, slowest-fastest), peak memory,
-    a profiled bucket, stores finite at their dims and FRA rows by the JAX
-    rules; (b) four tone clips on the card against the CPU
-    (``hc_gate`` at HC_CPU_TOL), the CPU's clips/s beside the card's; (c)
-    the 6 s bucket's rows against each clip alone at its exact length
-    (IS09, eGeMAPS gated at HC_RAGGED_TOL of max |clip|; the librosa sets
-    printed, their floor and padding depend on the buffer); (d)
-    ``extract_handcrafted.main`` on HC_CLI_CLIPS wavs it writes, each store
-    equal to ``extract_batch`` on the clips read back."""
+    mfcc, IS09, eGeMAPS, IS10, IS13; fp32, TF32 off): (a) each set at UTT
+    and FRA through ``extract_batch`` on ``handcrafted_clips()``, a warm
+    pass then ``passes`` timed ones: clips/s (median, slowest-fastest), peak
+    memory, stores finite at their dims and FRA rows by the JAX rules, then
+    every set's 12 s bucket in one profiler session; (b) four tone clips on
+    the card against the CPU (``hc_gate`` at HC_CPU_TOL; IS10's and IS13's
+    UTT by ``hc_explain``, its accounts printed), the CPU's clips/s beside
+    the card's; (c) the 6 s bucket's rows against each clip alone at its
+    exact length (the openSMILE sets gated at HC_RAGGED_TOL of max |clip|;
+    the librosa sets printed, their floor and padding depend on the
+    buffer); (d) ``extract_handcrafted.main`` on HC_CLI_CLIPS wavs it writes,
+    each store equal to ``extract_batch`` on the clips read back."""
     from mertools_tpu_torch.cli import extract_handcrafted as cli
     from mertools_tpu_torch.io import wav as wav_io
 
@@ -4947,9 +4988,9 @@ def phase_handcrafted(torch, card, dev: str = "cuda", wavs16=None, check_clips=N
     def ex(its, fs, level, sr=SR, device=dev):
         return cli.extract_batch(its, fs, level, sr, 32, device)
 
-    bucket12 = [(n, w) for n, w in items if 8 * SR < len(w) <= 12 * SR]
     res = {}
     for fs in HC_SETS:
+        t_set = time.perf_counter()
         ex(items, fs, "UTTERANCE")          # warm every bucket's shapes
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -4965,21 +5006,34 @@ def phase_handcrafted(torch, card, dev: str = "cuda", wavs16=None, check_clips=N
             rate[level] = sorted(rates)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
         med = {lv: r[len(r) // 2] for lv, r in rate.items()}
-        prof = hc_profile(torch, ex, bucket12, fs) if on_card else "profile not measured (no card)"
         print(f"[21 handcrafted] {fs} (a): clips/s, the median of {passes} passes "
               f"(slowest-fastest): UTT {med['UTTERANCE']:.2f} ({rate['UTTERANCE'][0]:.2f}-"
               f"{rate['UTTERANCE'][-1]:.2f}), FRA {med['FRAME']:.2f} ({rate['FRAME'][0]:.2f}-"
               f"{rate['FRAME'][-1]:.2f}) ({len(items)} clips, {audio_s:.1f} s of audio); peak "
-              f"{peak:.2f} GiB; stores finite at their dims, FRA rows by the JAX rules [{card}]",
-              flush=True)
-        print(f"[21 handcrafted] {fs} (a): {prof} [{card}]", flush=True)
+              f"{peak:.2f} GiB; stores finite at their dims, FRA rows by the JAX rules "
+              f"({time.perf_counter() - t_set:.1f} s) [{card}]", flush=True)
         res[fs] = {"utt_clips_s": med["UTTERANCE"], "fra_clips_s": med["FRAME"], "peak_gib": peak}
+    bucket12 = [(n, w) for n, w in items if 8 * SR < len(w) <= 12 * SR]
+    t0 = time.perf_counter()
+    profiles = hc_profiles(torch, ex, bucket12, HC_SETS) if on_card else {}
+    for fs in HC_SETS:
+        print(f"[21 handcrafted] {fs} (a): "
+              f"{profiles.get(fs, 'profile not measured (no card)')} [{card}]", flush=True)
+    print(f"[21 handcrafted] (a): the profile session and its reading took "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
     # (b) card vs CPU on four tone clips
     tones = list((check_clips or hc_check_clips()).items())
     for fs in HC_SETS:
-        worst, secs = {}, {"card": 0.0, "cpu": 0.0}
+        worst, secs, accounts = {}, {"card": 0.0, "cpu": 0.0}, ""
+        t_set = time.perf_counter()
         for level in HC_LEVELS:
+            if fs in ("IS10", "IS13") and level == "UTTERANCE":
+                worst[level], explained, t = hc_utt_gate(torch, fs, tones, dev, HC_CPU_TOL,
+                                                         "card vs CPU")
+                secs = {k: v + t[k] for k, v in secs.items()}
+                accounts = f"; UTT columns off it: {hc_accounts(explained)}"
+                continue
             sync()
             t0 = time.perf_counter()
             got = ex(tones, fs, level)
@@ -4991,30 +5045,31 @@ def phase_handcrafted(torch, card, dev: str = "cuda", wavs16=None, check_clips=N
         res[fs]["cpu"] = max(worst.values())
         print(f"[21 handcrafted] {fs} (b): card vs CPU on {len(tones)} tone clips, worst column "
               f"at {worst['UTTERANCE']:.3f} (UTT) and {worst['FRAME']:.3f} (FRA) of its allowance "
-              f"({HC_CPU_TOL:.0e} of max |CPU|), discrete columns equal; clips/s over both "
-              f"levels: card {2 * len(tones) / secs['card']:.2f}, CPU "
-              f"{2 * len(tones) / secs['cpu']:.2f} [{card}]", flush=True)
+              f"({HC_CPU_TOL:.0e} of max |CPU|), discrete columns equal{accounts}; clips/s over "
+              f"both levels: card {2 * len(tones) / secs['card']:.2f}, CPU "
+              f"{2 * len(tones) / secs['cpu']:.2f} ({time.perf_counter() - t_set:.1f} s) "
+              f"[{card}]", flush=True)
 
     # (c) the 6 s bucket's rows against each clip alone
     bucket6 = [(n, w) for n, w in items if 4 * SR < len(w) <= 6 * SR]
     for fs in HC_SETS:
-        gated = fs in ("IS09", "eGeMAPS")
-        worst = 0.0
-        for lv in HC_LEVELS:
-            batched = ex(bucket6, fs, lv)
-            for n, w in bucket6:
-                alone = hc_alone(torch, fs, lv, w, dev)
-                scale = float(np.abs(alone).max())
-                worst = max(worst, hc_gate(fs, lv, {n: batched[n]}, {n: alone}, HC_RAGGED_TOL,
-                                           "ragged vs alone", scale) if gated
-                            else float(np.abs(batched[n] - alone).max()) / scale)
+        gated = fs in HC_OPENSMILE
+        worst, t_set = 0.0, time.perf_counter()
+        batched = {lv: ex(bucket6, fs, lv) for lv in HC_LEVELS}
+        for n, w in bucket6:
+            alone = hc_alone(torch, fs, w, dev)
+            for lv in HC_LEVELS:
+                scale = float(np.abs(alone[lv]).max())
+                worst = max(worst, hc_gate(fs, lv, {n: batched[lv][n]}, {n: alone[lv]},
+                                           HC_RAGGED_TOL, "ragged vs alone", scale) if gated
+                            else float(np.abs(batched[lv][n] - alone[lv]).max()) / scale)
         res[fs]["ragged"] = worst
         print(f"[21 handcrafted] {fs} (c): the 6 s bucket's {len(bucket6)} ragged rows vs each "
               f"clip alone: " + (f"worst column at {worst:.3f} of its allowance "
                                  f"({HC_RAGGED_TOL:.0e} of max |clip|)" if gated else
                                  f"{worst:.3e} of max |clip| (printed, not gated: the dB floor is "
                                  f"the batch's max and the centre padding reads the buffer)")
-              + f" [{card}]", flush=True)
+              + f" ({time.perf_counter() - t_set:.1f} s) [{card}]", flush=True)
 
     # (d) extract_handcrafted.main on wavs it writes
     names = sorted(wavs16, key=lambda n: len(wavs16[n]))
@@ -5039,9 +5094,9 @@ def phase_handcrafted(torch, card, dev: str = "cuda", wavs16=None, check_clips=N
                     check(np.array_equal(np.load(os.path.join(store, f"{n}.npy")), want[n]),
                           f"CLI {fs} {level} {n} differs from extract_batch")
         cli_s = time.perf_counter() - t0
-    print(f"[21 handcrafted] (d): extract_handcrafted.main, 4 sets x 2 levels on {len(cli_names)} "
-          f"wavs ({cli_s:.1f} s with extract_batch's), every store equal to extract_batch on "
-          f"the clips read back [{card}]", flush=True)
+    print(f"[21 handcrafted] (d): extract_handcrafted.main, {len(HC_SETS)} sets x 2 levels on "
+          f"{len(cli_names)} wavs ({cli_s:.1f} s with extract_batch's), every store equal to "
+          f"extract_batch on the clips read back [{card}]", flush=True)
     print(f"[21 handcrafted] phase 21 took {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
     return res

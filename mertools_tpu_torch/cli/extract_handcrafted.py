@@ -10,7 +10,7 @@ Whole buckets of clips (edges 2/4/6/8/12/20/30 s, ``--batch`` clips a
 batch, as in the JAX CLI, so each clip shares its batch with the same
 neighbours) run as one batched computation on ``--device`` (default
 ``cuda``), fp32 with TF32 off. Sets: ``mel_spec``, ``mfcc``, ``IS09``,
-``eGeMAPS``; ``IS10`` and ``IS13`` exit naming ROADMAP A10b. Store layout
+``IS10``, ``IS13``, ``eGeMAPS``. Store layout
 as the reference worker's (``handcrafted_feature_extractor.py:50-59``):
 ``{save_dir}/{set}-{UTT|FRA}/{name}.npy``, UTTERANCE (D,), FRAME (T, D).
 A clip whose store file exists is skipped.
@@ -97,12 +97,6 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
-
-    from ..ops.handcrafted import NOT_PORTED
-    if args.feature_set in NOT_PORTED:
-        raise SystemExit(f"{args.feature_set}: the openSMILE {args.feature_set} chain is "
-                         f"not ported to mertools_tpu_torch yet (ROADMAP A10b); use "
-                         f"python -m mertools_tpu.cli.extract_handcrafted")
     resolve_dataset_args(args, audio_dir="audio", save_dir="features")
 
     level_tag = "UTT" if args.feature_level == "UTTERANCE" else "FRA"

@@ -127,9 +127,10 @@ def _shift(x: torch.Tensor, k: int, fill: float = 0.0) -> torch.Tensor:
 
 
 def _sma3nz(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Moving average over nonzero VALID neighbours only; zeros stay zero,
-    frames past ``mask`` neither receive nor contribute smoothing."""
-    keep = (x != 0) & mask
+    """Moving average along dim 1 of (B, F) or (B, F, D) over nonzero VALID
+    neighbours only; zeros stay zero, frames past ``mask`` neither receive
+    nor contribute smoothing."""
+    keep = (x != 0) & (mask if x.dim() == 2 else mask[:, :, None])
     nz = keep.to(x.dtype)
     xm = x * nz
     num = _shift(xm, 1) + xm + _shift(xm, -1)
@@ -141,17 +142,26 @@ def _sma3nz(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 # SHS pitch + Viterbi smoothing
 # ---------------------------------------------------------------------------
 
-_CAND_FREQS = np.exp(np.linspace(np.log(F0_LO), np.log(F0_HI), N_CAND)
-                     ).astype(np.float32)
+# A candidate grid is (lowest Hz, highest Hz, count), log-spaced; a tuple,
+# so the tables made from it are built and uploaded once a device.
+EGEMAPS_GRID = (F0_LO, F0_HI, N_CAND)
 
 
-def shs_tables(cand_freqs: np.ndarray = _CAND_FREQS, nfft: int = NFFT_P):
+def cand_freqs(grid: tuple = EGEMAPS_GRID) -> np.ndarray:
+    lo, hi, n = grid
+    return np.exp(np.linspace(np.log(lo), np.log(hi), n)).astype(np.float32)
+
+
+_CAND_FREQS = cand_freqs()
+
+
+def shs_tables(grid: tuple = EGEMAPS_GRID, nfft: int = NFFT_P):
     """The JAX package's SHS gather tables, each (G, H): the lower bin
     ``i0`` of harmonic h of candidate g, the interpolation weight ``w1`` of
     bin i0 + 1, and the compression ``0.85^(h-1)`` (0 past Nyquist)."""
     df = SR / nfft
     h = np.arange(1, N_HARM + 1)[None, :]                # (1, H)
-    fbin = cand_freqs[:, None] * h / df                  # (G, H) fractional
+    fbin = cand_freqs(grid)[:, None] * h / df            # (G, H) fractional
     valid = (fbin < nfft // 2).astype(np.float32)
     i0 = np.clip(np.floor(fbin).astype(np.int64), 0, nfft // 2 - 1)
     w1 = (fbin - i0).astype(np.float32)
@@ -159,11 +169,11 @@ def shs_tables(cand_freqs: np.ndarray = _CAND_FREQS, nfft: int = NFFT_P):
     return i0, w1, comp
 
 
-def shs_matrix(cand_freqs: np.ndarray = _CAND_FREQS, nfft: int = NFFT_P) -> np.ndarray:
+def shs_matrix(grid: tuple = EGEMAPS_GRID, nfft: int = NFFT_P) -> np.ndarray:
     """(nfft//2 + 1, G): SHS scores = magnitude @ this matrix, the sum over
     harmonics of ``comp * ((1 - w1) * mag[i0] + w1 * mag[i0 + 1])``."""
-    i0, w1, comp = shs_tables(cand_freqs, nfft)
-    G = len(cand_freqs)
+    i0, w1, comp = shs_tables(grid, nfft)
+    G = grid[2]
     W = np.zeros((nfft // 2 + 1, G), np.float32)
     g = np.broadcast_to(np.arange(G)[:, None], i0.shape)
     # float32 products, as the gather's (1 - w1) * comp; no two harmonics of
@@ -173,27 +183,27 @@ def shs_matrix(cand_freqs: np.ndarray = _CAND_FREQS, nfft: int = NFFT_P) -> np.n
     return W
 
 
-def _shs_scores(mag_p: torch.Tensor) -> torch.Tensor:
+def _shs_scores(mag_p: torch.Tensor, grid: tuple = EGEMAPS_GRID) -> torch.Tensor:
     """(B, F, K) 60 ms magnitude spectrum -> (B, F, G) SHS scores."""
-    return mag_p @ on_device(shs_matrix, mag_p.device)
+    return mag_p @ on_device(shs_matrix, mag_p.device, grid)
 
 
-def viterbi_trans(cand_freqs: np.ndarray = _CAND_FREQS) -> np.ndarray:
+def viterbi_trans(grid: tuple = EGEMAPS_GRID) -> np.ndarray:
     """(G+1, G+1) transition costs (from, to): 2 |log2 f - log2 f'| between
     voiced candidates, 1 across the voicing switch, 0 unvoiced to unvoiced."""
-    G = len(cand_freqs)
-    logf = np.log2(cand_freqs)
+    G = grid[2]
+    logf = np.log2(cand_freqs(grid))
     trans = np.full((G + 1, G + 1), 1.0, np.float32)
     trans[:G, :G] = 2.0 * np.abs(logf[:, None] - logf[None, :])
     trans[G, G] = 0.0
     return trans
 
 
-def _cand_hz(cand_freqs: np.ndarray = _CAND_FREQS) -> np.ndarray:
-    return np.concatenate([cand_freqs, np.zeros(1, np.float32)])
+def _cand_hz(grid: tuple = EGEMAPS_GRID) -> np.ndarray:
+    return np.concatenate([cand_freqs(grid), np.zeros(1, np.float32)])
 
 
-def _cand_semitones(cand_freqs: np.ndarray = _CAND_FREQS) -> np.ndarray:
+def _cand_semitones(grid: tuple = EGEMAPS_GRID) -> np.ndarray:
     """F0 in semitones from 27.5 Hz of each state (0 unvoiced), in float32
     as XLA evaluates ``12 log2(max(f0, 1) / 27.5)``: the quotient as a
     product with f32(1/27.5), then ln times f32(12/ln 2), with a correctly
@@ -203,13 +213,13 @@ def _cand_semitones(cand_freqs: np.ndarray = _CAND_FREQS) -> np.ndarray:
     rounds back to the same bits, so those bits matter; a table keeps them
     the same on every device."""
     f32 = np.float32
-    y = (np.maximum(cand_freqs, f32(1.0)) * f32(1 / 27.5)).astype(f32)
+    y = (np.maximum(cand_freqs(grid), f32(1.0)) * f32(1 / 27.5)).astype(f32)
     st = (np.log(y.astype(np.float64)).astype(f32) * f32(12 / np.log(2.0))).astype(f32)
     return np.concatenate([st, np.zeros(1, f32)])
 
 
-def _viterbi_f0(shs: torch.Tensor, p_voiced: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+def _viterbi_f0(shs: torch.Tensor, p_voiced: torch.Tensor, mask: torch.Tensor,
+                grid: tuple = EGEMAPS_GRID) -> torch.Tensor:
     """Min-cost smoothing over G candidates + an unvoiced state: shs (B,F,G),
     p_voiced (B,F), mask (B,F) -> (B, F) state index (G where unvoiced).
 
@@ -225,7 +235,7 @@ def _viterbi_f0(shs: torch.Tensor, p_voiced: torch.Tensor,
     valid = mask.transpose(0, 1)[:, :, None]             # (F,B,1)
     # (1, to, from): the min over the previous state runs along contiguous
     # memory; torch.min gives the first of equal minima, as jnp.argmin
-    trans_t = on_device(viterbi_trans, dev).T.contiguous()[None]
+    trans_t = on_device(viterbi_trans, dev, grid).T.contiguous()[None]
     iden = torch.arange(G + 1, device=dev).expand(B, G + 1)
 
     args = torch.empty((F, B, G + 1), dtype=torch.int64, device=dev)
@@ -477,8 +487,9 @@ def _mean_cv(x, m):
 
 
 def _percentiles(x, m, qs):
-    """Interpolated percentiles of the masked values. x, m: (B, F); frames
-    past the mask sort last as +inf."""
+    """Interpolated percentiles of the masked values along dim 1 (0 where a
+    row has none). x (B, F) or (B, F, D), m (B, F) or (B, F, 1); frames past
+    the mask sort last as +inf."""
     s = torch.sort(torch.where(m > 0, x, torch.inf), dim=1).values
     cnt = m.sum(1)
     n = cnt.clamp_min(1.0)
@@ -543,7 +554,13 @@ def _seg_stats(seg_mask, mask):
 def egemaps_utt(wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(B, T), (B,) -> (B, 88) in ``EGEMAPS_NAMES`` order."""
     wav = wav.to(torch.float32)
-    llds, voiced, mask = _lld_core(wav, lengths)
+    return utt_functionals(*_lld_core(wav, lengths), wav, lengths)
+
+
+def utt_functionals(llds: dict, voiced: torch.Tensor, mask: torch.Tensor, wav: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """:func:`_lld_core`'s contours (and the signal, for its level) -> the
+    88 functionals."""
     mA = mask.to(torch.float32)
     mV = voiced.to(torch.float32)
     mU = (mask & ~voiced).to(torch.float32)
@@ -600,4 +617,17 @@ def egemaps_utt(wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 def egemaps_frame(wav: torch.Tensor, lengths: torch.Tensor):
     """(B, T), (B,) -> ((B, F, 23) LLDs in CSV order, (B, F) mask)."""
     llds, _, mask = _lld_core(wav.to(torch.float32), lengths)
-    return torch.stack([llds[n] for n in LLD_NAMES], dim=-1), mask
+    return frame_contours(llds), mask
+
+
+def egemaps_levels(wav: torch.Tensor, lengths: torch.Tensor):
+    """Both levels from one contour pass: (:func:`egemaps_utt`, then
+    :func:`egemaps_frame`'s frames and mask)."""
+    wav = wav.to(torch.float32)
+    llds, voiced, mask = _lld_core(wav, lengths)
+    return utt_functionals(llds, voiced, mask, wav, lengths), frame_contours(llds), mask
+
+
+def frame_contours(llds: dict) -> torch.Tensor:
+    """:func:`_lld_core`'s contours -> the (B, F, 23) frame columns."""
+    return torch.stack([llds[n] for n in LLD_NAMES], dim=-1)

@@ -127,7 +127,11 @@ def sma3(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def _delta2(x: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     """cDeltaRegression deltawin=2: HTK delta, edges replicated at each
-    row's LAST VALID frame (``n_valid`` (B,)), not the padded buffer end."""
+    row's LAST VALID frame (``n_valid`` (B,)), not the padded buffer end.
+    The division by 10 is a product with f32(0.1), as XLA evaluates it (and
+    as CUDA divides by a scalar), so the deltas have the same bits on every
+    device: the IS10 and IS13 functionals split frames by the sign of their
+    differences, which is 0 on a flat stretch only if the bits agree."""
     T = x.shape[1]
     t = torch.arange(T, device=x.device)[None, :]
     hi = (n_valid[:, None] - 1).clamp_min(0)
@@ -136,7 +140,7 @@ def _delta2(x: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
         idx = torch.minimum((t + off).clamp_min(0), hi)
         return torch.take_along_dim(x, idx[:, :, None], dim=1)
 
-    return (1.0 * (g(1) - g(-1)) + 2.0 * (g(2) - g(-2))) / 10.0
+    return (1.0 * (g(1) - g(-1)) + 2.0 * (g(2) - g(-2))) * 0.1
 
 
 def _lld_core(wav: torch.Tensor, lengths: torch.Tensor):
@@ -225,3 +229,10 @@ def is09_utt(wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     functionals, LLD-major (``UTT_NAMES``)."""
     x32, mask = is09_frame(wav, lengths)
     return functionals_12(x32, mask)
+
+
+def is09_levels(wav: torch.Tensor, lengths: torch.Tensor):
+    """Both levels from one contour pass: (:func:`is09_utt`, then
+    :func:`is09_frame`'s frames and mask)."""
+    x32, mask = is09_frame(wav, lengths)
+    return functionals_12(x32, mask), x32, mask

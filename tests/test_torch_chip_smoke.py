@@ -765,6 +765,54 @@ def test_phase21_rows_are_the_jax_frame_counts():
         assert chip_smoke.hc_rows("IS09", n) == j9.n_frames(m)
         assert chip_smoke.hc_rows("eGeMAPS", n) == je.n_frames(m)
         assert chip_smoke.hc_rows("mfcc", n) == m // 160 + 1
+        assert chip_smoke.hc_rows("IS10", n) == chip_smoke.hc_rows("IS13", n) == j9.n_frames(m)
+
+
+def test_phase21_levels_of_one_pass_are_the_dispatchers():
+    """(c)'s clip alone: both levels from one contour computation
+    (``handcrafted_levels``) equal what ``handcrafted_utt`` and
+    ``handcrafted_frame`` give, bit for bit."""
+    import torch
+
+    from mertools_tpu_torch.ops import handcrafted as hc
+
+    w = chip_smoke.hc_check_clips()["tone380"][:12000]
+    x, n = torch.from_numpy(w)[None], torch.tensor([len(w)])
+    for fs in chip_smoke.HC_OPENSMILE:
+        utt, f, m = hc.handcrafted_levels(x, n, 16000, fs)
+        frame, mask = hc.handcrafted_frame(x, n, 16000, fs)
+        assert torch.equal(utt, hc.handcrafted_utt(x, n, 16000, fs)), fs
+        assert torch.equal(f, frame) and torch.equal(m, mask), fs
+
+
+def test_phase21_explain_gate_needs_an_account():
+    """``hc_explain`` passes IS10's functionals against themselves, fails
+    when a block's contours part past the tolerance, and fails a column
+    moved off its allowance that no account covers (a well-conditioned
+    mean moved by 1%), with the float64 engine ("rounding") or without."""
+    import torch
+
+    from mertools_tpu_torch.ops import opensmile_is10 as t10
+
+    tones = chip_smoke.hc_check_clips()
+    wavs = np.zeros((2, 32000), np.float32)
+    for i, name in enumerate(("tone380", "noise")):
+        wavs[i, :len(tones[name])] = tones[name]
+    parts = t10._lld_core(torch.from_numpy(wavs),
+                          torch.tensor([len(tones["tone380"]), len(tones["noise"])]))
+    utt = t10.utt_functionals(*parts).numpy()
+    blocks = t10.functional_blocks(*parts)
+    engine, engine64 = chip_smoke.port_engine("IS10"), chip_smoke.port_engine("IS10", True)
+    assert chip_smoke.hc_explain("IS10", utt, utt, blocks, blocks, engine, 1e-4, "x",
+                                 engine64) == (0.0, [])
+    off = utt.copy()
+    off[0, t10.IS10_NAMES.index("pcm_loudness_sma_amean")] *= 1.01
+    for e64 in (None, engine64):
+        with pytest.raises(RuntimeError, match="no account"):
+            chip_smoke.hc_explain("IS10", off, utt, blocks, blocks, engine, 1e-4, "x", e64)
+    moved = t10.functional_blocks(parts[0] * (1 + 1e-3), *parts[1:])
+    with pytest.raises(RuntimeError, match="contours of the block"):
+        chip_smoke.hc_explain("IS10", utt, utt, moved, blocks, engine, 1e-4, "x")
 
 
 def _stores(fs, level, seed=0):
@@ -840,8 +888,18 @@ def test_phase21_dims_gate_fails_on_rows_width_or_nan():
 
 
 def test_phase21_range_busy_counts_the_kernels_inside_a_named_range():
-    evs = [(0.0, 100.0, "egemaps.viterbi", "annotation"), (10.0, 30.0, "k1", "device"),
-           (20.0, 40.0, "k2", "device"), (150.0, 170.0, "k3", "device"),
-           (90.0, 120.0, "k4", "device")]
-    assert chip_smoke.range_busy_ms(evs, "egemaps.viterbi") == pytest.approx(0.03)
-    assert chip_smoke.range_busy_ms(evs, "other") == 0.0
+    """The device time of a range is what the host ops inside it launched,
+    wherever the device ran it: an op partly outside the range does not
+    count, nor one with no device work."""
+    from types import SimpleNamespace as NS
+
+    def op(a, b, *durations):
+        return NS(time_range=NS(start=a, end=b),
+                  kernels=[NS(name=f"k{i % 2}", duration=d) for i, d in enumerate(durations)])
+
+    ops = [op(10.0, 30.0, 20.0, 5.0), op(40.0, 60.0, 7.0), op(90.0, 120.0, 100.0),
+           op(50.0, 55.0)]
+    busy, by = chip_smoke.linked_busy_ms(ops, [(0.0, 100.0)])
+    assert busy == pytest.approx(0.032) and by == pytest.approx({"k0": 0.027, "k1": 0.005})
+    assert chip_smoke.linked_busy_ms(ops, [(0.0, 5.0), (35.0, 65.0)])[0] == pytest.approx(0.007)
+    assert chip_smoke.linked_busy_ms(ops, [])[0] == 0.0

@@ -149,5 +149,7 @@ def test_phase21_runs_end_to_end_on_the_cpu_at_a_small_size(monkeypatch, capsys)
     for fs in chip_smoke.HC_SETS:
         assert out.count(f"[21 handcrafted] {fs} (a): ") == 2
         assert res[fs]["cpu"] == 0.0 and res[fs]["utt_clips_s"] > 0
-    assert res["IS09"]["ragged"] <= 1.0 and res["eGeMAPS"]["ragged"] <= 1.0
-    assert "(d): extract_handcrafted.main, 4 sets x 2 levels on 3 wavs" in out
+    for fs in ("IS09", "eGeMAPS", "IS10", "IS13"):
+        assert res[fs]["ragged"] <= 1.0, fs
+    assert "UTT columns off it: none off it" in out
+    assert "(d): extract_handcrafted.main, 6 sets x 2 levels on 3 wavs" in out

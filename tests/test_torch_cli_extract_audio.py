@@ -390,7 +390,7 @@ SERVING = tuple(f"mertools_tpu_torch.{m}" for m in (
     "cli.ovlabel_extraction", "models.e2e_model", "data.e2e_dataset", "core.trees",
     "ops.align", "ops.fbank", "encoders.audio_zoo", "encoders.emotion2vec",
     "encoders.imagebind", "ops.handcrafted", "ops.opensmile_is09", "ops.egemaps",
-    "cli.extract_handcrafted"))
+    "cli.extract_handcrafted", "ops.opensmile_is10", "ops.opensmile_is13"))
 
 
 def test_port_never_imports_jax():
