@@ -16,9 +16,11 @@ CLIP-ViT-L/14 vision features (224 px, patch 14, 257 tokens, hidden 1024,
 frontend that makes its face stores from frames, AffectGPT generation
 and serving at TinyLlama-1.1B width, e2e fine-tuning of HuBERT-large with
 the int8 extraction mode, the audio encoder zoo (VGGish, wav2vec 1.0,
-emotion2vec base, ImageBind-huge audio) and the handcrafted acoustic
-sets (librosa mel/MFCC, openSMILE IS09, IS10, IS13 and eGeMAPS) — and
-checks them:
+emotion2vec base, ImageBind-huge audio), the handcrafted acoustic
+sets (librosa mel/MFCC, openSMILE IS09, IS10, IS13 and eGeMAPS) and the
+ViT vision zoo (DINOv2-large, data2vec-vision-base, VideoMAE-large,
+SigLIP-so400m, EVA-CLIP-G) — and checks them; a ``[time]`` line after each
+phase gives its seconds:
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``mertools_tpu_torch/csrc`` with nvcc (into ``build/kernels/``);
@@ -104,7 +106,8 @@ checks them:
    the kernels line;
 17. the fusion zoo at MER2023's split sizes, each model at the
    hyperparameters ``--seed=0`` draws from ``train/model_tune.yaml``, every
-   run cut to 1 epoch and 2 folds (``ZOO_EPOCHS``, ``ZOO_FOLDS``): (a)
+   run cut to 1 epoch and 2 folds (``ZOO_EPOCHS``, ``ZOO_FOLDS``), MulT to
+   2 layers (``ZOO_DEPTH``): (a)
    ``main_release`` for lf_dnn, tfn, lmf, misa and mmim on UTT stores
    (1024/1024/768), for ef_lstm, mfn, graph_mfn, mfm and mctn on
    frm_align stores with 12c's frame spans, and mult on frm_unalign: cv
@@ -119,7 +122,8 @@ checks them:
    ``cli.sweep --n_search=2 --n_repeat=2`` over 12b's attention flags,
    checked to carry the winner's hyperparameters into the repeats and to
    print a JSON line. It launches none of the port's kernels;
-18. serving at TinyLlama-1.1B width with AffectGPT's LoRA r 16: (a)
+18. serving at TinyLlama-1.1B width (11 of its 22 layers, ``SERVE_DEPTH``)
+   with AffectGPT's LoRA r 16: (a)
    ``generate`` (KV cache, greedy) on 8 ragged prompts of 64-448 tokens,
    bf16: prefill ms, a decode step's ms and tokens/s from the marginal
    rate of 64 and 128 new tokens (guarded: the longer call must take
@@ -140,7 +144,8 @@ checks them:
    kernels (counted): the JAX serving path reaches no Pallas kernel;
 19. e2e fine-tuning and the int8 extraction mode: (a) ``main_release
    --model=e2e_model --e2e_name=chinese-hubert-large --savemodel`` at
-   published width (24 layers, hidden 1024, 16 heads; seeded weights written
+   published width (12 of its 24 layers, ``E2E_LAYERS``, hidden 1024, 16
+   heads; seeded weights written
    as ``config.json`` + ``pytorch_model.bin``) on 256 wavs of 2-6 s in two
    tone classes, 8 x 32000 samples a clip, batch 32 (16 if 32 runs out of
    memory, said so), 2 folds x 2 epochs: seconds a step, segments/s, peak
@@ -151,7 +156,7 @@ checks them:
    backbone against the saved encoder, and a half-width checkpoint refused;
    (c) ``e2e_model`` on MacBERT-large (3 layers, the stand-in tokenizer) and
    CLIP-L/14 (2 layers, uint8 112 x 112 crops), one fold x one epoch, card
-   against CPU from the same weights; (d) HuBERT-large on the bench mix and
+   against CPU from the same weights; (d) HuBERT-large (its 12 layers) on the bench mix and
    CLIP-L on phase 14's clips at fp32, bf16 and int8 (clips/s, frames/s, the
    UTT gate int8 vs fp32 <= 3 x bf16 vs fp32), and the int8 sites' codes,
    scales and products card against CPU at 2 layers. It launches none of
@@ -176,8 +181,8 @@ checks them:
    each set at UTT and FRA through ``extract_batch`` on phase 3's 64 clips
    plus 4 of 20-30 s (the CLI's buckets to 30 s, batch 32): clips/s (median
    of 3 passes), peak memory, stores finite at their dims and FRA rows by
-   the JAX rules, then a 12 s bucket of every set in one profiler session
-   (idle share, top device ops, the Viterbi and RASTA loops' shares); (b)
+   the JAX rules, then IS13's 12 s bucket under the profiler (idle share,
+   top device ops, the Viterbi and RASTA loops' shares); (b)
    four tone clips on the card against the CPU (1e-4 of each column's max,
    discrete columns equal; IS10's and IS13's functionals off it printed
    with the account ``hc_explain`` gives them), the CPU's clips/s beside
@@ -185,7 +190,22 @@ checks them:
    openSMILE sets, 1e-5 of max |clip|; the librosa sets printed);
    (d) ``extract_handcrafted.main`` on 16 wavs it writes, each store equal
    to ``extract_batch``. It launches none of the port's kernels (counted):
-   the JAX chains' spectra are ``jnp.fft`` and their products einsums.
+   the JAX chains' spectra are ``jnp.fft`` and their products einsums;
+22. the ViT vision zoo behind ``extract_vision`` at published width with
+   seeded weights: DINOv2-large (518 px, 1,370 tokens), data2vec-vision-base
+   (per-layer relative bias), VideoMAE-large (16 frames, 1,568 tokens),
+   SigLIP-so400m (384 px) and EVA-CLIP-G (39 x 1408), on 16 clips of 8-80
+   face crops (112 x 112 BGR uint8): (a) bf16 on the whole mix and fp32
+   (TF32 off) on one batch of 64 frames (8 clips for VideoMAE), UTT and
+   FRA: frames/s (clips/s), the median of 3 passes, peak memory, a batch's
+   profile; (b) the card against the CPU in fp32 at 2 layers of full width
+   on 4 clips; (c) bf16 UTT within 3% of fp32; (d) ToMe r 8 for DINOv2,
+   SigLIP and EVA-CLIP-G beside the full tower; (e) ``extract_vision.main``
+   on a checkpoint in the publisher's layout (``config.json`` +
+   ``pytorch_model.bin``; ``eva-clip-g.pth``), DINOv2 at full depth in bf16
+   and the others at 2 layers, each store equal to the library call. It
+   launches none of the port's kernels (counted): the JAX ViTs' attention
+   is a dense einsum.
 
     python3 chip_smoke.py --fusion-zoo
 
@@ -205,7 +225,11 @@ runs phase 20 alone (its kernel counts included),
 
     python3 chip_smoke.py --handcrafted
 
-runs phase 21 alone (its kernel counts included), and
+runs phase 21 alone (its kernel counts included),
+
+    python3 chip_smoke.py --vision-zoo
+
+runs phase 22 alone (its kernel counts included), and
 
     python3 chip_smoke.py --b3-times DIR
 
@@ -2926,6 +2950,11 @@ ZOO_FOLDS = {"utt": 2, "frm": 2, "topn": 2, "sweep": 2}
 # the sweep's search draws and repeats (MERBench runs 50 and 6): cut from
 # 3 draws to 2 for phase 18's time
 ZOO_SWEEP = {"n_search": 2, "n_repeat": 2}
+# depth cut of a run, over its seed-0 draw: MulT's draw stacks 6 layers in
+# each of its crossmodal and self-attention transformers, and its
+# frm_unalign run took 50.6 s of phase 17's 265.6 s (the CLI; NVIDIA H100
+# 80GB HBM3, 700 W); 2 layers make room for phase 22
+ZOO_DEPTH = {"mult": {"layers": 2}}
 # 12c's frame spans (store, width, fewest and most frames) at feat_scale 6,
 # written as main_release's compression leaves them: ceil(T / 6) frames a
 # clip, read at --feat_scale=1 (frm_align) or 2 (frm_unalign: 12 / 6), so
@@ -3288,22 +3317,25 @@ def phase_fusion_zoo(torch, card, dev: str = "cuda", splits=MER2023_SPLITS,
         for model, feat_type in runs:
             group = "utt" if feat_type == "utt" else "frm"
             ep, nf = epochs[group], folds[group]
+            depth = ZOO_DEPTH.get(model, {})
             with mer2023_folds(nf):
-                res, secs, prof = zoo_release(torch, zoo_flags(d, model, feat_type, ep, dev),
-                                              ep * nf)
+                res, secs, prof = zoo_release(torch, zoo_flags(
+                    d, model, feat_type, ep, dev, *(f"--{k}={v}" for k, v in depth.items())),
+                    ep * nf)
             for s in ("test1", "test2", "test3"):
                 got = res.test_results[s]["emoprobs"]
                 check(got.shape == (splits[s], 6) and bool(np.isfinite(got).all()),
                       f"17 {model} {feat_type} {s} logits {got.shape} or non-finite")
             check(all(np.isfinite(v) for v in res.cv.values() if np.ndim(v) == 0),
                   f"17 {model} {feat_type} cv {res.cv}")
-            hp = seed0_hp(model)
+            hp = {**seed0_hp(model), **depth}
             t0 = time.perf_counter()
             worst = {}
             d_grad, d_eval = zoo_card_vs_cpu(torch, model, hp, zoo_sets(
                 np.random.default_rng(18), feat_type, small), dev, feat_type, worst)
             print(zoo_line(f"a/b: {model} {feat_type} (hidden {hp['hidden_dim']}, "
-                           f"seed-0 draw {hp})", res, secs, prof, n_train, ep, nf,
+                           f"seed-0 draw {hp}{f', depth cut to {depth}' if depth else ''})",
+                           res, secs, prof, n_train, ep, nf,
                            d_grad, d_eval, card, time.perf_counter() - t0, worst), flush=True)
             gates.append((f"{model} {feat_type}", d_grad, d_eval, worst))
             record(f"{model} {feat_type}", res, prof, group)
@@ -3430,6 +3462,10 @@ SERVE_AFFECT = {"video_dim": 768, "audio_dim": 1024, "frames": 64, "clips": 16,
                                 intermediate_size=3072)}
 # the checks run at full width with this many layers, fp32
 CHECK_LAYERS = 2
+# depth of the whole script's serving model: 11 of TinyLlama's 22 layers at
+# its published width (phase 18 took 103.1 s at 22, PR 18 call 14; NVIDIA
+# H100 80GB HBM3, 700 W), a cut that makes room for phase 22
+SERVE_DEPTH = 11
 # max |a - b| / max |b|: the KV-cached decode against LLM.forward, w8
 # against its dequantized weights, int8 KV against full precision (the JAX
 # package's ~1e-2 logit class, with headroom), the card against the CPU
@@ -3891,7 +3927,7 @@ def serving_phase(torch, wrappers, card) -> dict:
     port's."""
     for w in wrappers:
         w.launches = 0
-    rates = phase_serving(torch, card)
+    rates = phase_serving(torch, card, llm={**SERVE_LLM, "num_layers": SERVE_DEPTH})
     counts = no_launches(wrappers, "phase 18")
     print(f"[18 serving] kernel launches in phase 18: {counts} [{card}]", flush=True)
     return rates
@@ -3945,6 +3981,10 @@ E2E_CHECK = {"audio_layers": 2, "text_layers": 3, "vision_layers": 2, "clips": 8
 # (c): one fold x one epoch of MacBERT-large (3 layers) and CLIP-L (2 layers)
 E2E_TEXT_VISION = {"text_clips": 64, "video_clips": 24, "batch": 8}
 E2E_TOL = 1e-4        # card vs CPU: each gradient (ZOO_GRAD_FLOOR), logits
+# depth of the whole script's phase 19 HuBERT-large (a, b, d): 12 of its 24
+# layers at published width (phase 19 took 93.4 s at 24, PR 18 call 14;
+# NVIDIA H100 80GB HBM3, 700 W), a cut that makes room for phase 22
+E2E_LAYERS = 12
 FINETUNED_TOL = 1e-5  # extract_audio --finetuned_ckpt vs the saved encoder, UTT
 INT8_RATIO = 3.0      # int8 vs fp32 at most this times bf16 vs fp32, on UTT
 
@@ -4464,9 +4504,12 @@ def e2e_phase(torch, wrappers, card) -> None:
     """Phase 19 with the kernels' counts set to 0 before it and read after
     it: the JAX e2e path builds its encoders without flash attention and
     the int8 product is an XLA dot, so no kernel of the port runs."""
+    from mertools_tpu_torch.encoders.wav2vec2 import Wav2Vec2Config
+
     for w in wrappers:
         w.launches = 0
-    phase_e2e(torch, card)
+    phase_e2e(torch, card, acfg=dataclasses.replace(Wav2Vec2Config.large(),
+                                                    num_hidden_layers=E2E_LAYERS))
     counts = no_launches(wrappers, "phase 19")
     print(f"[19 e2e] kernel launches in phase 19: {counts} [{card}]", flush=True)
 
@@ -4768,6 +4811,10 @@ HC_SETS = ("mel_spec", "mfcc", "IS09", "eGeMAPS", "IS10", "IS13")
 HC_OPENSMILE = ("IS09", "eGeMAPS", "IS10", "IS13")
 HC_LEVELS = ("UTTERANCE", "FRAME")
 HC_PASSES = 3          # timed passes a set and level; the rate printed is their median
+# the sets phase 21 (a) profiles: IS13 runs both frame loops of B11 (the
+# Viterbi pass of IS10's pitch branch and RASTA's pole); all six sets' 12 s
+# bucket took 20.3 s of profiling (PR 17), the cut that makes room for phase 22
+HC_PROFILED = ("IS13",)
 HC_CPU_TOL = 1e-4      # card vs CPU: max |card - cpu| <= 1e-4 max |cpu| of a column, or 1e-6
 HC_CLI_CLIPS = 16
 
@@ -4966,7 +5013,7 @@ def phase_handcrafted(torch, card, dev: str = "cuda", wavs16=None, check_clips=N
     and FRA through ``extract_batch`` on ``handcrafted_clips()``, a warm
     pass then ``passes`` timed ones: clips/s (median, slowest-fastest), peak
     memory, stores finite at their dims and FRA rows by the JAX rules, then
-    every set's 12 s bucket in one profiler session; (b) four tone clips on
+    the 12 s bucket of each set of HC_PROFILED in one profiler session; (b) four tone clips on
     the card against the CPU (``hc_gate`` at HC_CPU_TOL; IS10's and IS13's
     UTT by ``hc_explain``, its accounts printed), the CPU's clips/s beside
     the card's; (c) the 6 s bucket's rows against each clip alone at its
@@ -5015,8 +5062,8 @@ def phase_handcrafted(torch, card, dev: str = "cuda", wavs16=None, check_clips=N
         res[fs] = {"utt_clips_s": med["UTTERANCE"], "fra_clips_s": med["FRAME"], "peak_gib": peak}
     bucket12 = [(n, w) for n, w in items if 8 * SR < len(w) <= 12 * SR]
     t0 = time.perf_counter()
-    profiles = hc_profiles(torch, ex, bucket12, HC_SETS) if on_card else {}
-    for fs in HC_SETS:
+    profiles = hc_profiles(torch, ex, bucket12, HC_PROFILED) if on_card else {}
+    for fs in HC_PROFILED:
         print(f"[21 handcrafted] {fs} (a): "
               f"{profiles.get(fs, 'profile not measured (no card)')} [{card}]", flush=True)
     print(f"[21 handcrafted] (a): the profile session and its reading took "
@@ -5114,6 +5161,323 @@ def handcrafted_phase(torch, wrappers, card) -> dict:
     return res
 
 
+# ------------------------------------------------- the vision zoo (phase 22)
+VZ_FAMILIES = ("dinov2", "data2vec", "videomae", "siglip", "eva_clip_g")
+VZ_PASSES = 3          # timed passes a level and dtype; the rate printed is their median
+VZ_CHECK_LAYERS = 2    # card vs CPU and the CLI's 2-layer checkpoints, at full width
+VZ_TOME = ("dinov2", "siglip", "eva_clip_g")
+VZ_CLI_TOL = 1e-5      # a CLI store vs the extractor on the same weights
+VZ_CLI_NAMES = {"dinov2": "dinov2-large", "data2vec": "data2vec-vision-base",
+                "videomae": "videomae-large", "siglip": "siglip-so400m-patch14-384",
+                "eva_clip_g": "eva-clip-g"}
+VZ_BATCH = {"videomae": 8}   # clips a VideoMAE batch; frames a batch elsewhere: 64
+
+
+def vz_clips(n: int = 16) -> dict:
+    """Phase 22's face crops as the OpenFace step writes them (112 x 112 BGR
+    uint8): ``n`` clips of 8-80 frames, seed 22; the first has 80 (over 64,
+    so DINOv2, EVA-G and SigLIP resample), the second 8 (under 16, so
+    VideoMAE repeat-pads)."""
+    rng = np.random.default_rng(22)
+    lengths = [80, 8, *rng.integers(10, 49, n - 2)]
+    return {f"face{i:02d}": rng.integers(0, 256, (int(t), 112, 112, 3), np.uint8)
+            for i, t in enumerate(lengths)}
+
+
+def vz_config(family: str, **fields):
+    """A family's published geometry (DINOv2-large at 518 px,
+    data2vec-vision-base, VideoMAE-large, SigLIP-so400m at 384 px,
+    EVA-CLIP-G at 224 px), ``fields`` replacing some of its fields."""
+    from mertools_tpu_torch.encoders import siglip as ts
+    from mertools_tpu_torch.encoders import vit as tv
+
+    large = dict(hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096)
+    cfg = {"dinov2": lambda: tv.dinov2_config(**large, image_size=518),
+           "data2vec": lambda: tv.beit_config(hidden_size=768, num_layers=12, num_heads=12,
+                                              intermediate_size=3072, image_size=224),
+           "videomae": lambda: tv.videomae_config(**large, image_size=224),
+           "siglip": ts.SiglipVisionConfig,
+           "eva_clip_g": lambda: tv.eva_clip_g_config(image_size=224)}[family]()
+    return dataclasses.replace(cfg, **fields)
+
+
+def vz_init(family: str, cfg, dev, seed: int) -> dict:
+    import torch
+
+    from mertools_tpu_torch.encoders import siglip as ts
+    from mertools_tpu_torch.encoders import vit as tv
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (ts if family == "siglip" else tv).init_params(cfg, gen)
+
+
+def vz_extractor(family: str, cfg, sd: dict, dev, batch: bool = True, **kw):
+    """The extractor the CLI builds for a family (max_frames 64), at phase
+    22's batch sizes unless ``batch`` is False (the CLI's own)."""
+    from mertools_tpu_torch.features import vision_zoo as vz
+
+    if batch:
+        kw["batch_size"] = VZ_BATCH.get(family, 64)
+    if family == "videomae":
+        return vz.VideoMAEExtractor(cfg, sd, device=dev, **kw)
+    if family in ("dinov2", "data2vec"):
+        return vz.vit_token_sum_extractor(cfg, sd, device=dev, **kw)
+    make = (vz.siglip_token_mean_extractor if family == "siglip"
+            else vz.eva_clip_g_token_mean_extractor)
+    return make(cfg, sd, device=dev, max_frames=64, **kw)
+
+
+def vz_units(family: str, clips: dict) -> int:
+    """Frames (clips for VideoMAE) an extraction of ``clips`` forwards."""
+    if family == "videomae":
+        return len(clips)
+    cap = None if family == "data2vec" else 64
+    return sum(len(c) if cap is None else min(len(c), cap) for c in clips.values())
+
+
+def vz_flops(cfg) -> float:
+    """FLOP of one unit (a frame; a clip for VideoMAE): 2 x the dense sites'
+    multiply-adds over the tokens, 4 N^2 H for the attention's two products
+    a layer, and the patch conv."""
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    n_patch = cfg.num_patches
+    N = getattr(cfg, "seq_len", n_patch)
+    mlp = (3 if getattr(cfg, "use_swiglu", False) else 2) * H * I
+    patch = 3 * cfg.patch_size ** 2 * (cfg.tubelet_size if getattr(cfg, "num_frames", 0) else 1)
+    return cfg.num_layers * (2 * N * (4 * H * H + mlp) + 4 * N * N * H) + 2 * n_patch * patch * H
+
+
+def vz_one_batch(family: str, clips: dict) -> dict:
+    """The shortest clips whose units fit one batch (64 frames, 8 clips)."""
+    out, n, cap = {}, 0, VZ_BATCH.get(family, 64)
+    for name in sorted(clips, key=lambda m: len(clips[m])):
+        k = vz_units(family, {name: clips[name]})
+        if n + k > cap:
+            break
+        out[name], n = clips[name], n + k
+    return out
+
+
+def vz_rates(torch, ex, clips: dict, units: int, on_card: bool) -> tuple[dict, dict, float]:
+    """A warm pass on two clips, then VZ_PASSES timed passes a level: (units/s
+    a level sorted, the last pass's outputs a level, peak GiB)."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ex.extract(dict(list(clips.items())[:2]), level="UTT")
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    rates, outs = {}, {}
+    for level in ("UTT", "FRA"):
+        r = []
+        for _ in range(VZ_PASSES):
+            t0 = time.perf_counter()
+            outs[level] = ex.extract(clips, level=level)
+            sync()
+            r.append(units / (time.perf_counter() - t0))
+        rates[level] = sorted(r)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    return rates, outs, peak
+
+
+def vz_write_checkpoint(d: str, family: str, cfg, sd: dict) -> str:
+    """A family's checkpoint as its publisher writes it, under ``d`` named
+    as the CLI looks for it: ``config.json`` + ``pytorch_model.bin`` in HF's
+    keys (DINOv2 with its ``mask_token``, data2vec with its pooler, SigLIP
+    as a full ``SiglipModel`` with a text-tower key and ``logit_scale``), or
+    BLIP-2's ``eva-clip-g.pth`` of timm keys."""
+    import torch
+
+    from mertools_tpu_torch.core.checkpoint import write_hf_checkpoint
+    from mertools_tpu_torch.encoders import vit as tv
+
+    path = os.path.join(d, VZ_CLI_NAMES[family])
+    if family == "eva_clip_g":
+        torch.save(tv.hf_state_dict(cfg, sd), path + ".pth")
+        return path + ".pth"
+    if family == "siglip":
+        config = {"model_type": "siglip", "vision_config": cfg.to_config_json()}
+        w = {**{k: v.cpu() for k, v in sd.items()},
+             "text_model.embeddings.token_embedding.weight": torch.zeros(4, 4),
+             "logit_scale": torch.tensor(2.3)}
+        return write_hf_checkpoint(path, config, w)
+    common = dict(hidden_size=cfg.hidden_size, num_hidden_layers=cfg.num_layers,
+                  num_attention_heads=cfg.num_heads, image_size=cfg.image_size,
+                  patch_size=cfg.patch_size, layer_norm_eps=cfg.layer_norm_eps)
+    w = tv.hf_state_dict(cfg, sd)
+    H = cfg.hidden_size
+    if family == "dinov2":
+        config = dict(common, model_type="dinov2", mlp_ratio=cfg.intermediate_size // H,
+                      layerscale_value=cfg.layerscale, use_swiglu_ffn=False)
+        w["embeddings.mask_token"] = torch.zeros(1, H)
+    elif family == "data2vec":
+        config = dict(common, model_type="data2vec-vision",
+                      intermediate_size=cfg.intermediate_size,
+                      layer_scale_init_value=cfg.layerscale,
+                      use_absolute_position_embeddings=False,
+                      use_relative_position_bias=True, use_mean_pooling=True)
+        w.update({"pooler.layernorm.weight": torch.ones(H), "pooler.layernorm.bias": torch.zeros(H)})
+    else:
+        config = dict(common, model_type="videomae", intermediate_size=cfg.intermediate_size,
+                      num_frames=cfg.num_frames, tubelet_size=cfg.tubelet_size,
+                      qkv_bias=True, use_mean_pooling=True)
+    return write_hf_checkpoint(path, config, w)
+
+
+def vz_layers_sd(family: str, sd: dict, n: int) -> dict:
+    return layer_prefix_sd(sd, "encoder.layers." if family == "siglip" else "blocks.", n)
+
+
+def phase_vision_zoo_family(torch, card, family: str, dev, clips: dict, fields: dict,
+                            n_check: int) -> dict:
+    """22 (a)-(e) for one family; returns its readings."""
+    from mertools_tpu_torch.cli import extract_vision
+
+    tag = f"[22 vision zoo] {family}"
+    on_card = torch.device(dev).type == "cuda"
+    unit = "clips" if family == "videomae" else "frames"
+    t0 = time.perf_counter()
+    cfg = vz_config(family, **fields)
+    sd = vz_init(family, cfg, dev, seed=22)
+    n_params = sum(v.numel() for v in sd.values())
+    res = {}
+    # (a) bf16 on the whole mix, fp32 on one batch; (c) bf16 vs fp32
+    one = vz_one_batch(family, clips)
+    outs = {}
+    for mode, data in (("bf16", clips), ("fp32", one)):
+        ex = vz_extractor(family, cfg, sd, dev, compute_dtype="bf16" if mode == "bf16" else None)
+        units = vz_units(family, data)
+        rates, outs[mode], peak = vz_rates(torch, ex, data, units, on_card)
+        med = {lv: r[len(r) // 2] for lv, r in rates.items()}
+        prof = "profile not measured (no card)"
+        if on_card:
+            wall, *p = device_profile(torch, lambda: ex.extract(one, level="UTT"))
+            prof = f"profile of one batch ({vz_units(family, one)} {unit}): wall {wall:.1f} ms, " \
+                   f"{profile_line(*p, wall)}"
+        tflops = vz_flops(cfg) * med["UTT"] / 1e12
+        print(f"{tag} (a) {mode}: {unit}/s, the median of {VZ_PASSES} passes (slowest-fastest): "
+              f"UTT {med['UTT']:.2f} ({rates['UTT'][0]:.2f}-{rates['UTT'][-1]:.2f}), FRA "
+              f"{med['FRA']:.2f} ({rates['FRA'][0]:.2f}-{rates['FRA'][-1]:.2f}) on {len(data)} "
+              f"clips, {units} {unit} ({tflops:.1f} TFLOP/s at UTT, {vz_flops(cfg) / 1e12:.3f} "
+              f"TFLOP a unit); peak {peak:.2f} GiB; {prof} [{card}]", flush=True)
+        res[mode] = {"utt": med["UTT"], "fra": med["FRA"], "peak_gib": peak}
+        for name, f in outs[mode]["FRA"].items():
+            rows = 8 if family == "videomae" else vz_units(family, {name: data[name]})
+            check(f.shape[0] == rows and bool(np.isfinite(f).all()),
+                  f"22 {family} {mode} FRA {name}: {f.shape}, want {rows} rows, finite")
+        del ex
+    bf = {n: outs["bf16"]["UTT"][n] for n in one}
+    res["bf16_vs_fp32"] = zoo_gate(rel_diff(bf, outs["fp32"]["UTT"]), FEATURE_TOL["bf16"],
+                                   f"22 {family} bf16 vs fp32 UTT")
+
+    # (b) card vs CPU, fp32, the first VZ_CHECK_LAYERS layers at full width
+    check_cfg = dataclasses.replace(cfg, num_layers=VZ_CHECK_LAYERS)
+    check_sd = vz_layers_sd(family, sd, VZ_CHECK_LAYERS)
+    few = {n: c[:1] if family != "videomae" else c for n, c in list(clips.items())[:n_check]}
+    t1 = time.perf_counter()
+    got = vz_extractor(family, check_cfg, check_sd, dev).extract(few, level="FRA")
+    want = vz_extractor(family, check_cfg, check_sd, "cpu").extract(few, level="FRA")
+    res["cpu"] = zoo_gate(rel_diff(got, want), FEATURE_TOL["cpu"], f"22 {family} card vs CPU")
+    cpu_s = time.perf_counter() - t1
+
+    # (d) ToMe r 8 beside the full tower, bf16
+    tome = ""
+    if family in VZ_TOME:
+        sub = dict(list(clips.items())[:4])
+        t1 = time.perf_counter()
+        got = vz_extractor(family, dataclasses.replace(cfg, tome_r=8), sd, dev,
+                           compute_dtype="bf16").extract(sub, level="UTT")
+        dt = time.perf_counter() - t1
+        for name, f in got.items():
+            check(f.shape == (cfg.hidden_size,) and bool(np.isfinite(f).all()),
+                  f"22 {family} ToMe {name}: {f.shape} or non-finite")
+        res["tome"] = rel_diff(got, {n: outs["bf16"]["UTT"][n] for n in sub})
+        tome = (f"; (d) ToMe r 8 (bf16) on {len(sub)} clips in {dt:.2f} s with set-up: UTT "
+                f"({cfg.hidden_size},) finite, {res['tome']:.3e} of max from the full tower "
+                f"(an approximation, no limit)")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (e) extract_vision.main on a checkpoint in the publisher's layout: DINOv2
+    # at full depth in bf16, the others at VZ_CHECK_LAYERS layers in fp32
+    full = family == "dinov2"
+    ccfg, csd = (cfg, sd) if full else (check_cfg, check_sd)
+    dtype = ["--compute_dtype", "bf16"] if full else []
+    cli_clips = dict(list(clips.items())[:4])
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        faces = os.path.join(td, "faces")
+        os.makedirs(faces)
+        for n, c in cli_clips.items():
+            np.save(os.path.join(faces, f"{n}.npy"), c)
+        ckpt = vz_write_checkpoint(td, family, ccfg, csd)
+        name = VZ_CLI_NAMES[family]
+        quiet(extract_vision.main, ["--model_name", name, "--pretrain_dir", td,
+                                    "--face_dir", faces, "--save_dir", td,
+                                    "--feature_level", "UTTERANCE", "--device",
+                                    "cuda" if on_card else "cpu", *dtype])
+        store = os.path.join(td, f"{name}-UTT")
+        check(sorted(os.listdir(store)) == sorted(f"{n}.npy" for n in cli_clips),
+              f"22 {family} CLI store {os.listdir(store)}")
+        feats = {n: np.load(os.path.join(store, f"{n}.npy")) for n in cli_clips}
+    lib = vz_extractor(family, ccfg, csd, dev, batch=False,
+                       compute_dtype="bf16" if full else None).extract(cli_clips, level="UTT")
+    res["cli"] = zoo_gate(rel_diff(feats, lib), VZ_CLI_TOL, f"22 {family} CLI vs library")
+    cli_s = time.perf_counter() - t1
+    print(f"{tag}: {n_params / 1e6:.1f} M params; (c) bf16 vs fp32 UTT on the fp32 batch's "
+          f"{len(one)} clips: {res['bf16_vs_fp32']:.3e} (limit {FEATURE_TOL['bf16']}); (b) card "
+          f"vs CPU fp32 at {VZ_CHECK_LAYERS} layers, {len(few)} clips, FRA: {res['cpu']:.3e} "
+          f"(limit {FEATURE_TOL['cpu']}; {cpu_s:.1f} s){tome}; (e) extract_vision.main on "
+          f"{os.path.basename(ckpt)} ({'full depth, bf16' if full else f'{VZ_CHECK_LAYERS} layers, fp32'}"
+          f", {len(cli_clips)} clips, {cli_s:.1f} s with the write): {res['cli']:.3e} from the "
+          f"library (limit {VZ_CLI_TOL:.0e}); family {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    return res
+
+
+def phase_vision_zoo(torch, card, dev: str = "cuda", clips=None, configs=None,
+                     n_check: int = 4) -> dict:
+    """22: the ViT vision zoo behind ``extract_vision`` at published width
+    with seeded weights (``configs`` may replace a family's config fields,
+    for a run at a small size): (a) bf16 on ``vz_clips()`` and fp32 on one
+    batch, UTT and FRA; (b) card vs CPU at VZ_CHECK_LAYERS layers on
+    ``n_check`` clips; (c) bf16 vs fp32; (d) ToMe r 8; (e) the CLI on a
+    checkpoint in the publisher's layout."""
+    clips = clips if clips is not None else vz_clips()
+    t_phase = time.perf_counter()
+    res = {family: phase_vision_zoo_family(torch, card, family, dev, clips,
+                                           (configs or {}).get(family, {}), n_check)
+           for family in VZ_FAMILIES}
+    print(f"[22 vision zoo] phase 22 took {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return res
+
+
+def vision_zoo_phase(torch, wrappers, card) -> dict:
+    """Phase 22 with the kernels' counts set to 0 before it and read after
+    it: the JAX ViT family's attention is a dense einsum, outside any Pallas
+    kernel, so no kernel of the port runs."""
+    for w in wrappers:
+        w.launches = 0
+    phase_vision_zoo(torch, card)
+    counts = no_launches(wrappers, "phase 22")
+    print(f"[22 vision zoo] kernel launches in phase 22: {counts} [{card}]", flush=True)
+    return counts
+
+
+def phase_clock(card):
+    """``mark(phase)`` prints the seconds since this call when a phase ends,
+    so a run's log gives every phase's share of the script's time."""
+    t0 = time.perf_counter()
+    last = [t0]
+
+    def mark(phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] phase {phase} ended {now - t0:.1f} s into the run, "
+              f"{now - last[0]:.1f} s after the last mark [{card}]", flush=True)
+        last[0] = now
+    return mark
+
+
 def b3_times_of(torch, root: str) -> int:
     """Phase 9's bf16 timing lines (S 512 and S 1024), phase 2's bf16 B1
     line (kernel, SDPA with the key mask, bound) and phase 5's B2 line
@@ -5157,7 +5521,8 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--b3-times"] and len(argv) == 2:
         return b3_times_of(torch, argv[1])
     alone = {"--fusion-zoo": zoo_phase, "--serving": serving_phase, "--e2e": e2e_phase,
-             "--audio-zoo": audio_zoo_phase, "--handcrafted": handcrafted_phase}
+             "--audio-zoo": audio_zoo_phase, "--handcrafted": handcrafted_phase,
+             "--vision-zoo": vision_zoo_phase}
     if argv and (len(argv) > 1 or argv[0] not in alone):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -5199,25 +5564,36 @@ def main(argv: list[str]) -> int:
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    mark = phase_clock(card)
 
     kres = phase_kernel(torch, fa, card)
+    mark("2")
     launches, ex_bf16, _ = phase_extract(torch, fa, ta, tw, card)
+    mark("3")
     phase_cli(torch, ex_bf16, card)
     del ex_bf16
     torch.cuda.empty_cache()
+    mark("4")
 
     mres = phase_mel(torch, mel, mf, card, usage)
+    mark("5")
     cfg, params, wavs, feat_launches, _ = phase_whisper_features(
         torch, mel, mf, tws, ta, card)
+    mark("6")
     asr_launches, _ = phase_asr(torch, mf, tws, tasr, tdec, cfg, params, wavs, card)
     del params
     torch.cuda.empty_cache()
+    mark("7")
     phase_cli_whisper(torch, mf, ta, card)
     torch.cuda.empty_cache()
+    mark("8")
 
     b3 = phase_b3(torch, fc, card)
+    mark("9")
     train_launches = phase_train(torch, fc, tga, tl, tq, tr, card)
+    mark("10")
     phase_cli_train(torch, fc, card)
+    mark("11")
 
     # the fusion trainer's path: counts start at 0 here and are read right
     # after it; it runs cuBLAS/cuDNN and none of the port's kernels
@@ -5231,17 +5607,22 @@ def main(argv: list[str]) -> int:
           flush=True)
     check(not any(fusion_launches.values()), f"phase 12 launched {fusion_launches}")
     torch.cuda.empty_cache()
+    mark("12")
 
     from mertools_tpu_torch.encoders.bert import BertConfig
     from mertools_tpu_torch.encoders.vit_clip import CLIPVisionConfig
 
     ex_text, text_launches, b1_text = phase_text(torch, fa, BertConfig.large(), card)
+    mark("13")
     ex_vis, vision_launches, b1_vis = phase_vision(torch, fa, CLIPVisionConfig(), card)
+    mark("14")
     tri_launches, handoff = phase_trimodal(torch, fa, ex_text, ex_vis, card)
     del ex_text
     torch.cuda.empty_cache()
+    mark("15")
     face_launches = phase_faces(torch, fa, ex_vis, handoff, card)
     del ex_vis, handoff
+    mark("16")
     b1_paths = {"HuBERT (3)": launches, "MacBERT (13)": text_launches,
                 "CLIP (14)": vision_launches, "trimodal (15)": tri_launches,
                 "faces (16)": face_launches}
@@ -5257,13 +5638,21 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     zoo_phase(torch, wrappers, card)
     torch.cuda.empty_cache()
+    mark("17")
     serving_phase(torch, wrappers, card)
     torch.cuda.empty_cache()
+    mark("18")
     e2e_phase(torch, wrappers, card)
     torch.cuda.empty_cache()
+    mark("19")
     b1_paths["audio zoo (20)"] = audio_zoo_phase(torch, wrappers, card)["flash_attention"]
     torch.cuda.empty_cache()
+    mark("20")
     handcrafted_phase(torch, wrappers, card)
+    torch.cuda.empty_cache()
+    mark("21")
+    b1_paths["vision zoo (22)"] = vision_zoo_phase(torch, wrappers, card)["flash_attention"]
+    mark("22")
 
     b, m = kres["bf16"], mres
     kernels = [{

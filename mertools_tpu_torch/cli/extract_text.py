@@ -38,10 +38,10 @@ def _not_ported(model_type: str) -> str | None:
     from ..encoders.bert import BERT_MODEL_TYPES
 
     if model_type in _LLM_TYPES:
-        return ("A9, the decoder-LLM text branch (CausalLMTextExtractor; it "
+        return ("A9c, the decoder-LLM text branch (CausalLMTextExtractor; it "
                 "needs output_hidden_states in mllm/llm.py)")
     if model_type not in BERT_MODEL_TYPES:   # chatglm and the text zoo
-        return "A9, the text encoder zoo (encoders/text_zoo.py)"
+        return "A9c, the text encoder zoo (encoders/text_zoo.py)"
     return None
 
 

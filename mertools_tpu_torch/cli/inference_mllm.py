@@ -17,7 +17,7 @@ reference does (``:259-260``) and resumes where an earlier run stopped.
 training run (``:33-84``), one ``{save_path}_epoch{N}.npz`` each.
 
 Not ported here: the raw-media mode (``--face_dir`` + ``--audio_dir``,
-online encoding), which needs ``mllm/encoders.py`` (ROADMAP A9).
+online encoding), which needs ``mllm/encoders.py`` (ROADMAP A9d).
 """
 
 from __future__ import annotations
@@ -55,9 +55,9 @@ def main(argv=None):
     p.add_argument("--video_feat_dir", default=None, help="offline feature store")
     p.add_argument("--audio_feat_dir", default=None)
     p.add_argument("--face_dir", default=None,
-                   help="per-clip face npy dir, encoded online (not ported: A9)")
+                   help="per-clip face npy dir, encoded online (not ported: A9d)")
     p.add_argument("--audio_dir", default=None,
-                   help="per-clip 16 kHz wav dir, encoded online (not ported: A9)")
+                   help="per-clip 16 kHz wav dir, encoded online (not ported: A9d)")
     p.add_argument("--visual_encoder", default="CLIP_VIT_LARGE")
     p.add_argument("--acoustic_encoder", default="HUBERT_LARGE")
     p.add_argument("--visual_pretrain", default=None)
@@ -96,7 +96,7 @@ def main(argv=None):
         raise SystemExit("raw-media inference (--face_dir / --audio_dir) encodes "
                          "with the frozen visual and acoustic encoders of "
                          "mllm/encoders.py, which are not ported to "
-                         "mertools_tpu_torch yet (ROADMAP A9); extract features "
+                         "mertools_tpu_torch yet (ROADMAP A9d); extract features "
                          "and pass --video_feat_dir / --audio_feat_dir")
     if not (args.video_feat_dir and args.audio_feat_dir):
         raise SystemExit("feature-store mode needs --video_feat_dir and --audio_feat_dir")

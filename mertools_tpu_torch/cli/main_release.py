@@ -151,7 +151,7 @@ def check_ported(args: Args) -> None:
     if args.model == "videomae_pretrain":
         raise SystemExit("--model=videomae_pretrain: masked video pretraining "
                          "is not ported to mertools_tpu_torch yet (ROADMAP A7b, "
-                         "after A9b's VideoMAE)")
+                         "on the port's VideoMAE)")
     if args.fusion_topn and args.model != "attention_topn":
         # the JAX package reads the tune space of --model before it
         # defaults the model, so a missing --model raises KeyError: None

@@ -16,7 +16,7 @@ selection and ``run.resume_ckpt_path``.
 
 Not ported here: the mesh flags (``--n_model``, ``--n_seq``, ``--n_pipe`` > 1
 exit naming ROADMAP A14) and raw-media mode (``datasets.face_dir`` +
-``audio_dir``, which needs the encoder slices A6/A9).
+``audio_dir``, which needs the encoder slice A9d).
 """
 
 from __future__ import annotations
@@ -168,7 +168,7 @@ def main(argv=None):
         raise SystemExit("raw-media training (datasets.face_dir + audio_dir) "
                          "encodes with the frozen visual and acoustic "
                          "encoders, which are not ported to mertools_tpu_torch "
-                         "yet (ROADMAP A6/A9); extract features and train on "
+                         "yet (ROADMAP A9d); extract features and train on "
                          "the feature store")
 
     amp = rcfg.get("amp")

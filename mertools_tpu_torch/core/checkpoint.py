@@ -84,7 +84,12 @@ def read_finetuned(path: str, reference: dict, load_hf_state_dict) -> dict:
     and shapes, else ValueError naming the mismatch."""
     from .trees import check_tree_like
 
-    restored = load_hf_state_dict(read_hf_weights(path))
+    try:
+        restored = load_hf_state_dict(read_hf_weights(path))
+    except KeyError as err:   # a layout's loader reads its architecture's keys
+        raise ValueError(f"--finetuned_ckpt: checkpoint tree does not match the "
+                         f"selected model architecture (structure mismatch: no "
+                         f"{err})") from None
     check_tree_like(restored, reference, "--finetuned_ckpt")
     print(f"loaded fine-tuned backbone from {path}")
     return restored

@@ -81,7 +81,7 @@ class BaseLoader:
         if a.model == "videomae_pretrain":
             raise SystemExit("--model=videomae_pretrain: its raw-video dataset "
                              "and model are not ported to mertools_tpu_torch "
-                             "yet (ROADMAP A7b, after A9b's VideoMAE)")
+                             "yet (ROADMAP A7b, on the port's VideoMAE)")
         if a.model == "e2e_model":  # raw-input fine-tuning (e2e_data.py)
             return self._build_e2e(names, emos, vals)
         if a.fusion_topn:  # top-N fusion (MER2024 feat_data_topn.py)

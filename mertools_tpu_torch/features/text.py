@@ -1,5 +1,5 @@
 """Batched text feature extraction — port of ``mertools_tpu/features/text.py``
-(the BERT family; the decoder-LLM extractor is ROADMAP A9).
+(the BERT family; the decoder-LLM extractor is ROADMAP A9c).
 
 Reference semantics (``extract_text_huggingface.py``): per transcript —
 tokenize, forward with every hidden state, sum the last 4 layers, slice away

@@ -93,46 +93,51 @@ class VisionExtractor:
                 ) -> dict[str, np.ndarray]:
         """faces: name -> (T, H, W, 3) BGR uint8 face crops. Returns name ->
         (T', D) FRA or (D,) UTT features, T' = min(T, max_frames)."""
-        jobs: list[tuple[str, int, np.ndarray]] = []
-        counts: dict[str, int] = {}
-        for name, arr in faces.items():
-            idx = resample_frames_uniform(len(arr), self.max_frames)
-            if len(idx) == 0:
-                raise ValueError(f"clip {name!r} has no frames to pool "
-                                 "(empty face array)")
-            counts[name] = len(idx)
-            for fi, ai in enumerate(idx):
-                jobs.append((name, fi, arr[ai]))
+        return stream_frames(faces, level, self._embed, self.batch_size,
+                             self.max_frames, self._device)
 
-        utt = level.upper().startswith("UTT")
-        slot = {n: i for i, n in enumerate(faces)}
-        scrap = len(faces)          # pad rows accumulate into a junk slot
-        acc = (torch.zeros((scrap + 1, self.cfg.projection_dim),
-                           dtype=torch.float32, device=self._device)
-               if utt else None)
-        bs = self.batch_size
-        h, w = jobs[0][2].shape[:2]
-        pending = []   # dispatch every batch, then collect
-        for i in range(0, len(jobs), bs):
-            group = jobs[i: i + bs]
-            batch = np.zeros((bs, h, w, 3), np.uint8)   # fixed shape
-            for r, (_, _, frame) in enumerate(group):
-                batch[r] = frame
-            emb = self._embed(upload(batch, self._device))
-            if utt:
-                ids = np.full((bs,), scrap, np.int64)
-                ids[: len(group)] = [slot[n] for n, _, _ in group]
-                acc.index_add_(0, upload(ids, self._device), emb)
-            else:
-                pending.append((group, emb))
+
+def stream_frames(faces: dict, level: str, embed, batch_size: int, max_frames,
+                  device: torch.device) -> dict:
+    """The frame stream of the per-frame extractors: ``faces`` (name -> (T,
+    H, W, 3) uint8) resampled to at most ``max_frames`` (all frames if
+    None), forwarded ``batch_size`` rows at a time through ``embed`` (uint8
+    batch on ``device`` -> (rows, D) float32), every batch dispatched before
+    any is collected. FRA: name -> (T', D); UTT: name -> (D,), the frames'
+    mean, summed on the device. An empty clip raises ValueError."""
+    jobs, counts = [], {}
+    for name, arr in faces.items():
+        idx = np.arange(len(arr)) if max_frames is None else \
+            resample_frames_uniform(len(arr), max_frames)
+        if len(idx) == 0:
+            raise ValueError(f"clip {name!r} has no frames to pool (empty face array)")
+        counts[name] = len(idx)
+        jobs += [(name, arr[ai]) for ai in idx]
+    utt = level.upper().startswith("UTT")
+    slot = {n: i for i, n in enumerate(faces)}
+    scrap = len(faces)          # pad rows accumulate into a junk slot
+    acc, pending = None, []
+    h, w = jobs[0][1].shape[:2]
+    for i in range(0, len(jobs), batch_size):
+        group = jobs[i: i + batch_size]
+        batch = np.zeros((batch_size, h, w, 3), np.uint8)   # fixed shape
+        for r, (_, frame) in enumerate(group):
+            batch[r] = frame
+        emb = embed(upload(batch, device))
         if utt:
-            arr = acc.cpu().numpy()
-            return {n: arr[slot[n]] / counts[n] for n in faces}
-
-        results: dict[str, dict[int, np.ndarray]] = {n: {} for n in faces}
-        for group, res in pending:
-            embeds = res.cpu().numpy()
-            for r, (name, fi, _) in enumerate(group):
-                results[name][fi] = embeds[r]
-        return {name: np.stack([results[name][fi] for fi in range(counts[name])])
-                for name in faces}
+            if acc is None:
+                acc = torch.zeros((scrap + 1,) + emb.shape[1:], dtype=torch.float32,
+                                  device=device)
+            ids = np.full((batch_size,), scrap, np.int64)
+            ids[: len(group)] = [slot[n] for n, _ in group]
+            acc.index_add_(0, upload(ids, device), emb)
+        else:
+            pending.append((group, emb))
+    if utt:
+        arr = acc.cpu().numpy()
+        return {n: arr[slot[n]] / counts[n] for n in faces}
+    rows: dict = {n: [] for n in faces}    # a clip's frames arrive in order
+    for group, res in pending:
+        for (name, _), e in zip(group, res.cpu().numpy()):
+            rows[name].append(e)
+    return {n: np.stack(r) for n, r in rows.items()}

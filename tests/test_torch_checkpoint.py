@@ -3,12 +3,15 @@ that lacks a key reads as transformers reads it, with the key's class
 default, for every model type the port's encoders load."""
 
 import dataclasses
+from types import SimpleNamespace
 
 import pytest
 import transformers as tr
 
 from mertools_tpu_torch.core.checkpoint import with_class_defaults
 from mertools_tpu_torch.encoders import bert as tb
+from mertools_tpu_torch.encoders import siglip as tsg
+from mertools_tpu_torch.encoders import vit as tv
 from mertools_tpu_torch.encoders import vit_clip as tc
 from mertools_tpu_torch.encoders import wav2vec2 as tw
 from mertools_tpu_torch.encoders import whisper as tws
@@ -32,6 +35,12 @@ CASES = [
     (tb.BertConfig, "electra", tr.ElectraConfig),
     (tc.CLIPVisionConfig, "clip_vision_model", tr.CLIPVisionConfig),
     (tc.CLIPVisionConfig, "clip", tr.CLIPConfig),
+    (SimpleNamespace(from_hf=tv.dinov2_config), "dinov2", tr.Dinov2Config),
+    (SimpleNamespace(from_hf=tv.beit_config), "data2vec-vision", tr.Data2VecVisionConfig),
+    (SimpleNamespace(from_hf=tv.beit_config), "beit", tr.BeitConfig),
+    (SimpleNamespace(from_hf=tv.videomae_config), "videomae", tr.VideoMAEConfig),
+    (tsg.SiglipVisionConfig, "siglip_vision_model", tr.SiglipVisionConfig),
+    (tsg.SiglipVisionConfig, "siglip", tr.SiglipConfig),
 ]
 
 

@@ -381,8 +381,8 @@ def test_dataset_missing_from_registry_exits(tmp_path, monkeypatch):
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mertools_tpu")
-# modules the walk must find by name: the serving, e2e, audio-zoo and
-# handcrafted slices'
+# modules the walk must find by name: the serving, e2e, audio-zoo,
+# handcrafted and vision-zoo slices'
 SERVING = tuple(f"mertools_tpu_torch.{m}" for m in (
     "ops.quant", "mllm.generate", "mllm.beam", "mllm.serve", "mllm.chat",
     "mllm.convert_affectgpt", "io.xlsx", "ops.ov_metrics", "cli.inference_mllm",
@@ -390,7 +390,8 @@ SERVING = tuple(f"mertools_tpu_torch.{m}" for m in (
     "cli.ovlabel_extraction", "models.e2e_model", "data.e2e_dataset", "core.trees",
     "ops.align", "ops.fbank", "encoders.audio_zoo", "encoders.emotion2vec",
     "encoders.imagebind", "ops.handcrafted", "ops.opensmile_is09", "ops.egemaps",
-    "cli.extract_handcrafted", "ops.opensmile_is10", "ops.opensmile_is13"))
+    "cli.extract_handcrafted", "ops.opensmile_is10", "ops.opensmile_is13",
+    "encoders.vit", "encoders.siglip", "features.vision_zoo", "cli.extract_vision"))
 
 
 def test_port_never_imports_jax():

@@ -4,7 +4,7 @@ checkpoint (the JAX tests' tiny Qwen2 directory, read by the port's
 engines, w8, bf16), ``translate``, ``main_ov generate-synonyms``,
 ``main_asr punctuate --model`` and ``inference_mllm`` (feature stores, a
 ``save_model`` AffectGPT, resume, the ``--run_dir`` sweep) write the JAX
-outputs at temperature 0; the raw-media mode exits naming A9; each CLI
+outputs at temperature 0; the raw-media mode exits naming A9d; each CLI
 defaults to the card."""
 
 import csv
@@ -204,7 +204,7 @@ def test_inference_mllm_equals_jax_chat(tiny_hf_llm, tmp_path):  # noqa: F811
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--face_dir=f", "--audio_dir=a"], "A9"),
+    (["--face_dir=f", "--audio_dir=a"], "A9d"),
     (["--video_feat_dir=v"], "--audio_feat_dir"),
 ])
 def test_inference_mllm_unported_modes_exit(argv, match):

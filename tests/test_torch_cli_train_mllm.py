@@ -187,7 +187,7 @@ def test_build_model_defaults_to_the_card(monkeypatch):
     (["--n_model", "2"], "", "A14"),
     (["--n_seq", "2"], "", "A14"),
     (["--n_pipe", "2"], "", "A14"),
-    ([], "  face_dir: /nonexistent\n  audio_dir: /nonexistent\n", "A6/A9"),
+    ([], "  face_dir: /nonexistent\n  audio_dir: /nonexistent\n", "A9d"),
 ])
 def test_unported_paths_exit_naming_roadmap(tmp_path, argv, extra, match):
     cfg = _config(tmp_path, *_data(tmp_path))

@@ -7,6 +7,7 @@ loads an HF ``Blip2QFormerModel`` whose output the port's QFormer
 reproduces."""
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -65,6 +66,15 @@ CASES = {"attention": lambda rng: (_attention_sd(rng), 12, 10),
          "qformer": _qformer_sd}
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_fns(jcfg):
+    """The JAX model's init and ``generate_step_embeds``, jitted once a
+    config (eager calls dispatch, and compile, each primitive)."""
+    jmodel = JAffectGPT(jcfg)
+    return jax.jit(jmodel.init), jax.jit(functools.partial(
+        jmodel.apply, method=JAffectGPT.generate_step_embeds))
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_converter_gives_the_jax_converted_weights(case):
     rng = np.random.default_rng(0)
@@ -79,8 +89,8 @@ def test_converter_gives_the_jax_converted_weights(case):
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
 
     batch = _stream_batch(rng, Dv, Da)
-    jmodel = JAffectGPT(jcfg)
-    init = jmodel.init(jax.random.PRNGKey(0), batch)["params"]
+    jinit, jstep = _jax_fns(jcfg)
+    init = jinit(jax.random.PRNGKey(0), batch)["params"]
     params = jconv.apply_checkpoint(init, glue, lora)
     port = ta.AffectGPT(tcfg)
     port.load_state_dict(ta.state_dict_from_flax(tcfg, init))
@@ -90,8 +100,7 @@ def test_converter_gives_the_jax_converted_weights(case):
         assert torch.equal(v, want[k]), k
     assert len(state) > 10 and set(state) <= set(want)
 
-    jemb = np.asarray(jmodel.apply({"params": params}, batch,
-                                   method=JAffectGPT.generate_step_embeds))
+    jemb = np.asarray(jstep({"params": params}, batch))
     with torch.no_grad():
         temb = port.generate_step_embeds({k: torch.from_numpy(v) for k, v in batch.items()})
     assert np.abs(temb.numpy() - jemb).max() <= 1e-4 * np.abs(jemb).max()

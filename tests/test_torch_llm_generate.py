@@ -8,6 +8,7 @@ serving math. The port's cache layout is (layers, B, kv_heads, L, hd); the
 JAX caches are transposed to it for comparison."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -33,9 +34,10 @@ def _jax_params(cfg, seed=7):
         mdl.embed(ids)
         return mdl(embeds)
 
-    params = model.init(jax.random.PRNGKey(seed),
-                        np.zeros((1, 4, cfg.hidden_size), np.float32),
-                        np.zeros((1, 1), np.int32), method=both)["params"]
+    # jitted: one compile, where an eager init dispatches each primitive
+    params = jax.jit(functools.partial(model.init, method=both))(
+        jax.random.PRNGKey(seed), np.zeros((1, 4, cfg.hidden_size), np.float32),
+        np.zeros((1, 1), np.int32))["params"]
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):   # non-zero LoRA B, so the deltas take part

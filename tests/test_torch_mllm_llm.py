@@ -7,6 +7,7 @@ the CPU) is compared on valid rows: the JAX XLA path masks keys only, so pad
 query rows differ by design."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -145,7 +146,8 @@ def test_mrope_and_attention_bias_match_jax(kw):
     if cfg.mrope_section:
         rng = np.random.default_rng(4)
         pos = rng.integers(0, 9, size=(len(LENS), 12, 3)).astype(np.int32)
-    want = np.asarray(jl.LLM(cfg).apply({"params": params}, x, mask, pos))
+    # jitted: one compile, where an eager apply dispatches each primitive
+    want = np.asarray(jax.jit(jl.LLM(cfg).apply)({"params": params}, x, mask, pos))
     port = _port(cfg, params)
     with torch.no_grad():
         got = port(torch.from_numpy(x), torch.from_numpy(mask),
@@ -170,9 +172,9 @@ def test_hf_llama_loads_into_both():
     jcfg = jl.LLMConfig.from_hf(hf_cfg)
     jparams = jl.convert_torch_state(jcfg, hf.state_dict())
     jm = jl.LLM(jcfg)
-    emb = jm.apply({"params": jparams}, jnp.asarray(ids, jnp.int32),
-                   method=jl.LLM.embed)
-    jax_logits = np.asarray(jm.apply({"params": jparams}, emb))
+    emb = jax.jit(functools.partial(jm.apply, method=jl.LLM.embed))(
+        {"params": jparams}, jnp.asarray(ids, jnp.int32))
+    jax_logits = np.asarray(jax.jit(jm.apply)({"params": jparams}, emb))
 
     tcfg = tl.LLMConfig.from_hf(hf_cfg.to_dict())   # the config.json dict
     assert dataclasses.asdict(tcfg) == {**dataclasses.asdict(jcfg),

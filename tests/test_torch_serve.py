@@ -6,6 +6,7 @@ and without the repetition penalty, token-id and embedding submission —
 and the power-of-two padding rows of an admission never touch a live slot."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,8 +36,10 @@ def llm():
         mdl.embed(ids)
         return mdl(embeds)
 
-    params = model.init(jax.random.PRNGKey(5), np.zeros((1, 4, 32), np.float32),
-                        np.zeros((1, 1), np.int32), method=both)["params"]
+    # jitted: one compile, where an eager init dispatches each primitive
+    params = jax.jit(functools.partial(model.init, method=both))(
+        jax.random.PRNGKey(5), np.zeros((1, 4, 32), np.float32),
+        np.zeros((1, 1), np.int32))["params"]
     return cfg, params
 
 

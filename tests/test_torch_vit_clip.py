@@ -6,6 +6,7 @@ CPU, with and without ToMe and on the flash route; ToMe's merge order on
 ties; the raw-checkpoint loader on a ``CLIPModel`` save."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,16 @@ def _model():
     return _MODEL["m"]
 
 
+# one compile a merge count, where eager dispatch compiles each primitive
+_jax_tome = jax.jit(jv.tome_merge, static_argnums=(3, 4))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward(jcfg):
+    """The JAX tower's jitted forward, compiled once a config."""
+    return jax.jit(lambda p, x: jc.CLIPVisionEncoder(jcfg).apply({"params": p}, x))
+
+
 @pytest.mark.parametrize("tome_r,flash", [(0, False), (0, True), (3, False)],
                          ids=["full", "flash", "tome3"])
 def test_encoder_matches_jax(tome_r, flash):
@@ -50,8 +61,7 @@ def test_encoder_matches_jax(tome_r, flash):
     enc = tc.CLIPVisionEncoder(tcfg)
     enc.load_state_dict(tc.state_dict_from_flax(tcfg, params), strict=True)
     pix = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(np.float32)
-    ref = jax.jit(lambda p, x: jc.CLIPVisionEncoder(jcfg).apply(
-        {"params": p}, x))(params, jnp.asarray(pix))
+    ref = _jax_forward(jcfg)(params, jnp.asarray(pix))   # the flash case reuses full's
     with torch.no_grad():
         out = enc.eval()(torch.from_numpy(pix))
     # 16 patches + CLS, less 3 merges a layer while (N - 1) // 2 allows
@@ -79,8 +89,7 @@ def test_tome_merge_matches_jax(ties):
     metric = x[..., :4].copy()
     sizes = rng.integers(1, 4, size=(B, N)).astype(np.float32)
     for r in (1, 3, 5):
-        jo, js = jv.tome_merge(jnp.asarray(x), jnp.asarray(metric),
-                               jnp.asarray(sizes), r, 1)
+        jo, js = _jax_tome(jnp.asarray(x), jnp.asarray(metric), jnp.asarray(sizes), r, 1)
         to, ts = tv.tome_merge(torch.from_numpy(x), torch.from_numpy(metric),
                                torch.from_numpy(sizes), r, 1)
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
